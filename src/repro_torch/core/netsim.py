@@ -1,0 +1,144 @@
+"""Network simulator for the paper's testbed regime (port of ``repro.core.netsim``).
+
+Serial uplink with (possibly time-varying) bandwidth, fixed latency and a
+server processing time; deterministic given a seed.  Bandwidths are in
+megabits/s at the API surface (``mbps``), bytes/s inside.  Host numpy,
+float64, exactly as the reference.
+
+Bandwidth is the constant rate times ``jitter``, a per-second factor
+drawn from ``default_rng((seed, second))`` (the reference's "pcg" mode).
+The reference's bandwidth traces and its ``jitter_mode="counter"``, which
+takes its bits from JAX's threefry generator, are not ported yet
+(ROADMAP A.7).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+
+# cap on fixed-point sweeps before falling back to the exact serial loop
+_FIXED_POINT_SWEEPS = 50
+
+
+def mbps(x: float) -> float:
+    """Megabits/s -> bytes/s."""
+    return x * 1e6 / 8.0
+
+
+@dataclass
+class Uplink:
+    bandwidth_bps: float  # bytes per second (base rate)
+    latency: float  # seconds (one-way + reply, lumped as L in the paper)
+    server_time: float  # T^o
+    jitter: float = 0.0  # relative bandwidth jitter
+    seed: int = 0
+    jitter_mode: str = "pcg"
+    _busy_until: float = 0.0
+    _jit_keys: Optional[np.ndarray] = field(default=None, repr=False)
+    _jit_vals: Optional[np.ndarray] = field(default=None, repr=False)
+
+    def __post_init__(self):
+        if self.jitter_mode == "counter":
+            raise NotImplementedError(
+                "jitter_mode='counter' needs JAX's threefry bits; not ported yet (ROADMAP A.7)")
+        if self.jitter_mode != "pcg":
+            raise ValueError(f"jitter_mode must be 'pcg' or 'counter', got {self.jitter_mode!r}")
+        self._jit_keys = np.zeros(0, dtype=np.int64)
+        self._jit_vals = np.zeros(0, dtype=np.float64)
+
+    # -- bandwidth model -------------------------------------------------- #
+
+    def _jitter_factors(self, seconds: np.ndarray) -> np.ndarray:
+        """Per-second factors for the requested integer seconds, cached;
+        each second's factor comes from its own ``default_rng((seed, s))``."""
+        if len(seconds) == 0:
+            return np.zeros(0, dtype=np.float64)
+        uniq = np.unique(seconds)
+        new = uniq[~np.isin(uniq, self._jit_keys)]
+        if len(new):
+            vals = np.asarray([
+                np.clip(1.0 + self.jitter *
+                        np.random.default_rng((self.seed, int(s))).standard_normal(), 0.2, 2.0)
+                for s in new])
+            keys = np.concatenate([self._jit_keys, new])
+            order = np.argsort(keys)
+            self._jit_keys = keys[order]
+            self._jit_vals = np.concatenate([self._jit_vals, vals])[order]
+        return self._jit_vals[np.searchsorted(self._jit_keys, seconds)]
+
+    def bandwidth_at(self, t) -> np.ndarray:
+        """Vectorized instantaneous bandwidth (bytes/s) at times ``t``."""
+        t = np.asarray(t, dtype=np.float64)
+        base = np.full(t.shape, self.bandwidth_bps)
+        if self.jitter > 0:
+            base = base * self._jitter_factors(t.astype(np.int64))
+        return base
+
+    # -- transfers --------------------------------------------------------- #
+
+    def _lindley(self, tx: np.ndarray, subs: np.ndarray) -> np.ndarray:
+        """end_i = max(t_submit_i, end_{i-1}) + tx_i with end_{-1} = busy,
+        as one cumsum + running max (max-plus / Lindley recursion)."""
+        csum = np.cumsum(tx)
+        eff = np.maximum(subs, self._busy_until) - (csum - tx)
+        return np.maximum.accumulate(eff) + csum
+
+    def transmit_batch(self, payload_bytes, t_submit) -> np.ndarray:
+        """Queue many transfers in array order; returns the time each
+        *reply* lands (transmission end plus server time and latency).
+        Time-varying bandwidth is solved by fixed-point iteration over the
+        start times, with the serial loop as the safety net."""
+        payloads = np.asarray(payload_bytes, dtype=np.float64)
+        subs = np.asarray(t_submit, dtype=np.float64)
+        if payloads.size == 0:
+            return np.zeros(0, dtype=np.float64)
+        if self.jitter <= 0:
+            end_tx = self._lindley(payloads / self.bandwidth_bps, subs)
+        else:
+            starts = np.maximum(subs, self._busy_until)
+            for _ in range(_FIXED_POINT_SWEEPS):
+                tx = payloads / self.bandwidth_at(starts)
+                end_tx = self._lindley(tx, subs)
+                new_starts = end_tx - tx
+                if np.array_equal(new_starts, starts):
+                    break
+                starts = new_starts
+            else:  # did not settle: fall back to the exact serial loop
+                end_tx = np.empty(len(payloads), dtype=np.float64)
+                busy = self._busy_until
+                for i in range(len(payloads)):
+                    s = max(subs[i], busy)
+                    busy = s + payloads[i] / self.bandwidth_at([s])[0]
+                    end_tx[i] = busy
+        self._busy_until = float(end_tx[-1])
+        return end_tx + self.server_time + self.latency
+
+
+def png_size_model(res, *, base_res: int = 224, base_bytes: float = 60_000.0):
+    """Approximate lossless-PNG payload size vs resolution (scales ~ r²);
+    scalar in, float out; array in, float64 array out."""
+    res = np.asarray(res, dtype=np.float64)
+    out = base_bytes * (res / base_res) ** 2
+    return float(out) if out.ndim == 0 else out
+
+
+def payload_sizes(size_of, res) -> np.ndarray:
+    """Vectorized ``size_of`` with a per-element fallback for scalar-only callables."""
+    res = np.asarray(res)
+    try:
+        out = np.asarray(size_of(res), dtype=np.float64)
+        if out.shape == res.shape:
+            return out
+    except (TypeError, ValueError):
+        pass
+    return np.asarray([float(size_of(int(r))) for r in res.ravel()],
+                      dtype=np.float64).reshape(res.shape)
+
+
+def transfer_seconds(lands, t_submit, *, latency: float, server_time) -> np.ndarray:
+    """Observed wire time per transfer: reply-land minus submit minus the
+    known round-trip components (what bandwidth estimators feed on)."""
+    return np.asarray(lands, dtype=np.float64) - np.asarray(t_submit, dtype=np.float64) \
+        - latency - server_time

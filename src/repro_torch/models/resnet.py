@@ -1,0 +1,131 @@
+"""ResNet-v1.5 with bottleneck blocks (port of ``repro.models.resnet``).
+
+BatchNorm is folded to inference-style ``scale``/``bias`` ("frozen BN").
+Images arrive NHWC, as the JAX package takes them, and are permuted once
+to NCHW at entry.  Parameter names follow the JAX pytree's leaves
+(``stem.w``, ``stage0.b0.c1.scale``, ``head.w``, ...), so
+``quant.quantize``'s name rules apply unchanged; weights are stored in
+PyTorch's layouts (conv OIHW, head ``(classes, features)``).
+
+``"SAME"`` padding in XLA is asymmetric for stride 2 (the extra row and
+column go at the end), which a symmetric ``padding=`` would shift: every
+conv and the max-pool pad explicitly with the split ``_same_pad`` computes
+from the input size.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ResNetConfig
+from repro_torch.device import resolve_device
+
+
+def _same_pad(n: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's SAME split (lo, hi) for one spatial dim of size ``n``."""
+    out = -(-n // stride)
+    total = max((out - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_same(x, k: int, stride: int, value: float = 0.0):
+    (top, bottom), (left, right) = (_same_pad(x.shape[2], k, stride),
+                                    _same_pad(x.shape[3], k, stride))
+    if top == bottom == left == right == 0:
+        return x
+    return F.pad(x, (left, right, top, bottom), value=value)
+
+
+class Conv(nn.Module):
+    """SAME conv + frozen-BN affine (+ ReLU)."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, act: bool = True):
+        super().__init__()
+        self.k, self.stride, self.act = k, stride, act
+        self.w = nn.Parameter(torch.zeros(cout, cin, k, k))
+        self.scale = nn.Parameter(torch.ones(cout))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x):
+        y = F.conv2d(_pad_same(x, self.k, self.stride), self.w, stride=self.stride)
+        y = y * self.scale[:, None, None] + self.bias[:, None, None]
+        return F.relu(y) if self.act else y
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, cin: int, mid: int, cout: int, stride: int, downsample: bool):
+        super().__init__()
+        self.c1 = Conv(cin, mid, 1)
+        self.c2 = Conv(mid, mid, 3, stride=stride)
+        self.c3 = Conv(mid, cout, 1, act=False)
+        self.proj = Conv(cin, cout, 1, stride=stride, act=False) if downsample else None
+
+    def forward(self, x):
+        y = self.c3(self.c2(self.c1(x)))
+        idn = x if self.proj is None else self.proj(x)
+        return F.relu(y + idn)
+
+
+class Head(nn.Module):
+    def __init__(self, d: int, n_classes: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(n_classes, d))
+        self.b = nn.Parameter(torch.zeros(n_classes))
+
+    def forward(self, x):
+        return F.linear(x, self.w, self.b)
+
+
+class ResNet(nn.Module):
+    """``ResNet(cfg, generator=g)`` draws weights as ``models/ptree.py``
+    does (normal, std 1/sqrt(fan_in); conv fan-in k·k·cin, head fan-in
+    cin; scale 1, bias 0) from ``g``; without a generator the weights are
+    zeros, to be overwritten by ``load_state_dict``."""
+
+    def __init__(self, cfg: ResNetConfig, *, generator: torch.Generator | None = None,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.stem = Conv(3, cfg.width, 7, stride=2)
+        cin = cfg.width
+        for i, dep in enumerate(cfg.depths):
+            mid = cfg.width * 2**i
+            cout = mid * 4
+            blocks = nn.ModuleDict()
+            for b in range(dep):
+                stride = 2 if (b == 0 and i > 0) else 1
+                blocks[f"b{b}"] = Bottleneck(cin, mid, cout, stride, downsample=(b == 0))
+                cin = cout
+            setattr(self, f"stage{i}", blocks)
+        self.head = Head(cin, cfg.n_classes)
+        if generator is not None:
+            self.reset_parameters(generator)
+        self.to(resolve_device(device))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        """Fan-in-scaled normal weights drawn on the generator's device."""
+        gdev = generator.device
+        for name, p in self.named_parameters():
+            if name.endswith(".w"):
+                fan_in = p.shape[1] * p.shape[2] * p.shape[3] if p.ndim == 4 else p.shape[1]
+                draw = torch.randn(p.shape, generator=generator, device=gdev)
+                p.copy_(draw / math.sqrt(fan_in))
+            elif name.endswith(".scale"):
+                p.fill_(1.0)
+            else:
+                p.zero_()
+
+    def forward(self, images):
+        """images (B, H, W, 3) NHWC -> logits (B, n_classes) f32."""
+        x = images.permute(0, 3, 1, 2).contiguous()
+        x = self.stem(x)
+        x = F.max_pool2d(_pad_same(x, 3, 2, value=-math.inf), 3, 2)
+        for i, dep in enumerate(self.cfg.depths):
+            stage = getattr(self, f"stage{i}")
+            for b in range(dep):
+                x = stage[f"b{b}"](x)
+        return self.head(x.mean(dim=(2, 3)))

@@ -1,0 +1,41 @@
+"""The offload decision plane (port of ``repro.policy``, single stream).
+
+Importing the package registers the built-in policies.
+"""
+from repro_torch.policy.base import BacklogPolicy, OffloadPolicy, OneShotPolicy
+from repro_torch.policy.frontier import cbo_plan, optimal_schedule
+from repro_torch.policy.policies import (
+    CBOPolicy,
+    GreedyRatePolicy,
+    LocalPolicy,
+    OptimalPolicy,
+    ServerPolicy,
+    ThresholdPolicy,
+)
+from repro_torch.policy.registry import available_policies, make_policy, register, resolve_policies
+from repro_torch.policy.runner import BandwidthEstimator, PolicyRunner
+from repro_torch.policy.types import Env, Frame, Plan, plan_from_chain
+
+__all__ = [
+    "OffloadPolicy",
+    "BacklogPolicy",
+    "OneShotPolicy",
+    "register",
+    "make_policy",
+    "available_policies",
+    "resolve_policies",
+    "CBOPolicy",
+    "OptimalPolicy",
+    "ThresholdPolicy",
+    "LocalPolicy",
+    "ServerPolicy",
+    "GreedyRatePolicy",
+    "PolicyRunner",
+    "BandwidthEstimator",
+    "cbo_plan",
+    "optimal_schedule",
+    "Frame",
+    "Env",
+    "Plan",
+    "plan_from_chain",
+]
