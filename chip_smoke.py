@@ -6,16 +6,20 @@
 Needs a CUDA GPU, the CUDA toolkit (``nvcc``) and this checkout's ``src/``;
 without them it exits non-zero before printing any result.  Phases:
 
-  1. card: ``nvidia-smi`` name and power limit; build the port's kernel;
+  1. card: ``nvidia-smi`` name and power limit; build the port's kernels;
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shape and at wider, ragged and extreme ones, with times;
-  3. the main path: ``CascadeServer(use_fused=True)`` serving 256 synthetic
+     main paths' shapes and at wider, ragged and extreme ones, with times
+     (and, for attention, ``scaled_dot_product_attention``'s as a yardstick);
+  3. path 1: ``CascadeServer(use_fused=True)`` serving 256 synthetic
      224 px frames with two full-width ResNet-50 tiers (random weights from
-     seeds; the fast tier int8 through ``qdq_tree``), with the kernels'
-     launch counts read around that run alone; then the same stream again
-     under ``torch.profiler`` for the device's idle share;
+     seeds; the fast tier int8 through ``qdq_tree``);
+     3b. path 2: the same server and stream with a DeiT-B slow tier, whose
+     every attention launches the flash-attention kernel.
+     Each path's kernel launch counts are set to 0 just before its run and
+     read just after; then the same stream runs again under
+     ``torch.profiler`` for the device's idle share;
   4. one batch's fast pass on the card against the same pass on the CPU,
-     TF32 off;
+     and (4b) DeiT-B's logits on two frames likewise, TF32 off;
   5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, and the script exits non-zero.
@@ -35,10 +39,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 CALIB_ATOL = 1e-6  # kernel vs plain version on the card: one float32 row sum
+ATTN_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}  # softmax summed in another order; one bf16 rounding
 CPU_CONF_ATOL = 1e-5  # card vs CPU through 53 float32 convolutions, TF32 off
+CPU_LOGIT_ATOL = 1e-4  # card vs CPU through DeiT-B's 12 float32 layers, TF32 off (logits ~2.5)
 PLATT = (-20.0, 5.0)
 N_FRAMES = 256
+BATCH = 16
 ACC_SERVER = (0.35, 0.5, 0.6, 0.66, 0.7)  # fixed ladder: there are no trained weights
 BW_MBPS = 5.0
 
@@ -131,8 +139,20 @@ class TimedTier:
         return [s.elapsed_time(e) for s, e in self.events]
 
 
+def build_phase(libraries) -> None:
+    """Phase 1: build every kernel's library and show what ``ptxas`` made."""
+    t0 = time.perf_counter()
+    for lib in libraries:
+        lib.load()
+    print(f"built kernels in {time.perf_counter() - t0:.2f} s (nvcc -gencode arch=compute_90a,code=sm_90a)")
+    for lib in libraries:
+        for line in lib.ptxas_log.splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                print(f"  ptxas {lib.source.name}:", line.strip())
+
+
 def calib_gate_phase(torch, calib_gate, calib_gate_ref):
-    """Phase 2: the CUDA kernel against its plain version on the card."""
+    """Phase 2: the calib-gate kernel against its plain version on the card."""
     g = torch.Generator(device="cuda").manual_seed(0)
     extreme = torch.cat([torch.full((16, 512), -1e4, device="cuda"),
                          torch.randn(16, 512, generator=g, device="cuda") * 50], dim=1)
@@ -179,60 +199,91 @@ def calib_gate_phase(torch, calib_gate, calib_gate_ref):
     return rows, max_err
 
 
-def main() -> int:
+def attention_bound(B, Sq, Sk, H, D, causal, dtype):
+    """Least time (ms) for the card, and what bounds it: q, k, v read once
+    and o written once, against 4·D operations per (query, visible key) pair
+    per head (q·k and p·v), at the f32 FMA or the bf16 tensor-core peak."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
-        return 2
+    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    n_ops = 4 * B * H * D * pairs
+    n_bytes = 2 * B * (Sq + Sk) * H * D * (4 if dtype == torch.float32 else 2)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / (FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
-    from repro_torch.configs.resnet_50 import FULL
-    from repro_torch.core.cascade import fast_pass
+
+def flash_phase(torch, flash_attention, attention_ref):
+    """Phase 2: the flash-attention kernel against its plain version and
+    against ``scaled_dot_product_attention`` (the library yardstick, on the
+    (B, H, S, D) views) on the card."""
+    import torch.nn.functional as F
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("path K=16", 16, 198, 198, 12, 64, False, f32),
+             ("path K=3", 3, 198, 198, 12, 64, False, f32)]
+    for B, S, H, D in ((1, 256, 2, 64), (2, 512, 4, 64), (2, 384, 2, 128), (1, 1024, 1, 64)):
+        for causal in (True, False):
+            cases.append((f"sweep{'-causal' if causal else ''}", B, S, S, H, D, causal, f32))
+    cases += [("bf16 causal", 2, 256, 256, 2, 64, True, bf16),
+              ("Sq100 Sk300", 1, 100, 300, 2, 64, True, f32),
+              ("S=1", 1, 1, 1, 1, 64, False, f32)]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
+    print("flash_attention vs attention_ref and SDPA; device time per call from the profiler,"
+          " 'loop' CUDA events over 200 back-to-back calls from Python:")
+    for name, B, Sq, Sk, H, D, causal, dtype in cases:
+        q = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
+        k = torch.randn(B, Sk, H, D, generator=g, device="cuda").to(dtype)
+        v = torch.randn(B, Sk, H, D, generator=g, device="cuda").to(dtype)
+        out = flash_attention(q, k, v, causal=causal)
+        ref = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        tname = str(dtype).removeprefix("torch.")
+        check(out.dtype == dtype and out.shape == (B, Sq, H, D), f"{name}: {out.dtype} {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        err = float((out.float() - ref.float()).abs().max())
+        check(err <= ATTN_ATOL[tname], f"{name} {(B, Sq, Sk, H, D)}: err {err} > {ATTN_ATOL[tname]}")
+        max_err[tname] = max(max_err[tname], err)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        sdpa_err = float((sdpa().transpose(1, 2).float() - ref.float()).abs().max())
+        dev = device_ms(lambda: flash_attention(q, k, v, causal=causal))
+        plain_dev = device_ms(lambda: attention_ref(q, k, v, causal=causal))
+        lib_dev = device_ms(sdpa)
+        loop = cuda_ms(lambda: flash_attention(q, k, v, causal=causal), iters=50, warmup=5)
+        # where the profiler records no device time, the line falls back to
+        # the loops, which also carry the host's launch cost
+        if plain_dev is None:
+            plain_dev = cuda_ms(lambda: attention_ref(q, k, v, causal=causal), iters=50, warmup=5)
+        if lib_dev is None:
+            lib_dev = cuda_ms(sdpa, iters=50, warmup=5)
+        bound_ms, bound_by = attention_bound(B, Sq, Sk, H, D, causal, dtype)
+        rows.append(dict(case=name, shape=(B, Sq, Sk, H, D), causal=causal, dtype=tname, err=err,
+                         ms=loop if dev is None else dev, plain_ms=plain_dev, library_ms=lib_dev,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        print(f"  {name:13s} {str((B, Sq, Sk, H, D)):22s} {tname:8s} err {err:.2e}"
+              f" | kernel device {_us(dev)} loop {_us(loop)} | plain device {_us(plain_dev)}"
+              f" | SDPA device {_us(lib_dev)} (err {sdpa_err:.1e}) | bound {_us(bound_ms)} ({bound_by})")
+    print(f"  max |kernel - plain|: float32 {max_err['float32']:.3e} (atol {ATTN_ATOL['float32']}),"
+          f" bfloat16 {max_err['bfloat16']:.3e} (atol {ATTN_ATOL['bfloat16']})")
+    return rows, max_err["float32"]
+
+
+def serve_phase(label, fast, slow, frames, labels, counted):
+    """Phases 3 and 3b: ``CascadeServer`` over the stream, with the launch
+    counts of ``counted`` ({name: (wrapper, expected launches)}) set to 0
+    just before the run and read just after; then the same stream again
+    inside one trace of the card's activity."""
+    import torch
+
     from repro_torch.core.netsim import Uplink, mbps
-    from repro_torch.data.video import VideoDataConfig, make_dataset
-    from repro_torch.kernels.fused_calib_gate import kernel as cg_kernel
-    from repro_torch.kernels.fused_calib_gate.ref import calib_gate_ref
-    from repro_torch.models.resnet import ResNet
-    from repro_torch.quant.quantize import qdq_tree
     from repro_torch.serving.engine import CascadeServer, ServeConfig
 
-    # ---- 1. card and build ------------------------------------------------ #
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
-    t0 = time.perf_counter()
-    cg_kernel.LIBRARY.load()
-    print(f"built kernels in {time.perf_counter() - t0:.2f} s (nvcc -gencode arch=compute_90a,code=sm_90a)")
-    for line in cg_kernel.LIBRARY.ptxas_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print("  ptxas:", line.strip())
-
-    # ---- 2. kernel vs plain version --------------------------------------- #
-    rows, max_err = calib_gate_phase(torch, cg_kernel.calib_gate, calib_gate_ref)
-
-    # ---- 3. the main path ------------------------------------------------- #
-    t0 = time.perf_counter()
-    fast = ResNet(FULL, generator=torch.Generator().manual_seed(0), device="cuda")
-    fast.load_state_dict(qdq_tree(fast.state_dict()))  # int8 per-channel "NPU" weights
-    slow = ResNet(FULL, generator=torch.Generator().manual_seed(1), device="cuda")
-    data = make_dataset(VideoDataConfig(n_classes=FULL.n_classes, img_res=FULL.img_res,
-                                        frames_per_video=16), N_FRAMES // 16, seed=0)
-    frames, labels = data["frames"], data["labels"]
-    check(frames.shape == (N_FRAMES, 224, 224, 3), f"frames {frames.shape}")
-    print(f"set-up: weights and {N_FRAMES} frames {time.perf_counter() - t0:.2f} s")
-    # cuDNN sets up each new batch shape on its first call (0.1-0.2 s on an
-    # H100); a server warms every batch size it can see before serving
-    t0 = time.perf_counter()
-    warm = torch.as_tensor(frames[:16], device="cuda")
-    with torch.inference_mode():
-        fast(warm)
-        for k in range(1, 17):
-            slow(warm[:k])
-    torch.cuda.synchronize()
-    print(f"set-up: warm-up of the fast tier at 16 and the slow tier at 1..16 frames"
-          f" {time.perf_counter() - t0:.2f} s")
-
-    cfg = ServeConfig(batch_size=16, use_fused=True, platt_ab=PLATT, acc_server=ACC_SERVER)
+    cfg = ServeConfig(batch_size=BATCH, use_fused=True, platt_ab=PLATT, acc_server=ACC_SERVER)
     uplink = Uplink(bandwidth_bps=mbps(BW_MBPS), latency=0.05, server_time=cfg.server_time)
     fast_t, slow_t = TimedTier(fast, "fast"), TimedTier(slow, "slow")
     server = CascadeServer(cfg, fast_t, slow_t, calibrate=None, uplink=uplink, device="cuda")
@@ -246,36 +297,40 @@ def main() -> int:
         return out
 
     server.controller.plan = timed_plan
-    n_batches = -(-N_FRAMES // cfg.batch_size)
+    n_batches = -(-len(frames) // cfg.batch_size)
 
-    cg_kernel.calib_gate.launches = 0
+    for fn, _ in counted.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     metrics = server.process_stream(frames, labels)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"calib_gate": cg_kernel.calib_gate.launches}
+    launches = {name: fn.launches for name, (fn, _) in counted.items()}
 
-    check(launches["calib_gate"] == n_batches,
-          f"calib_gate launched {launches['calib_gate']} times for {n_batches} batches")
-    check(metrics.n_frames == N_FRAMES, f"served {metrics.n_frames} frames")
-    check(metrics.n_offloaded + metrics.n_deadline_miss > 0, "no frame escalated")
-    check(len(fast_t.events) == n_batches and len(slow_t.events) == n_batches, "tier calls")
-    check(all(np.isfinite(metrics.latencies)), "non-finite latency")
+    for name, (_, expected) in counted.items():
+        check(launches[name] == expected, f"{label}: {name} launched {launches[name]} times,"
+              f" expected {expected} for {n_batches} batches")
+    check(metrics.n_frames == len(frames), f"{label}: served {metrics.n_frames} frames")
+    check(metrics.n_offloaded + metrics.n_deadline_miss > 0, f"{label}: no frame escalated")
+    check(len(fast_t.events) == n_batches and len(slow_t.events) == n_batches, f"{label}: tier calls")
+    check(all(np.isfinite(metrics.latencies)), f"{label}: non-finite latency")
     fast_ms, slow_ms = fast_t.ms(), slow_t.ms()
-    print(f"main path on {card}: ResNet-50 FULL x2, {N_FRAMES} frames, {n_batches} batches of "
-          f"{cfg.batch_size}, {BW_MBPS} Mbps uplink, cuDNN TF32 {torch.backends.cudnn.allow_tf32}")
+    print(f"{label} on {card_line()}: {len(frames)} frames, {n_batches} batches of {cfg.batch_size},"
+          f" {BW_MBPS} Mbps uplink, cuDNN TF32 {torch.backends.cudnn.allow_tf32},"
+          f" matmul TF32 {torch.backends.cuda.matmul.allow_tf32}")
     print("  ServeMetrics.summary():", json.dumps(metrics.summary()))
-    print(f"  frames/s {N_FRAMES / wall:.2f} (wall {wall:.3f} s); launches {launches}")
+    print(f"  frames/s {len(frames) / wall:.2f} (wall {wall:.3f} s); launches {launches}")
     print(f"  ms per batch: fast tier mean {np.mean(fast_ms):.3f} (min {np.min(fast_ms):.3f}),"
           f" slow tier mean {np.mean(slow_ms):.3f} (min {np.min(slow_ms):.3f}),"
           f" planner mean {np.mean(plan_s) * 1e3:.3f} (max {np.max(plan_s) * 1e3:.3f})")
     print("  slow tier calls (batch size: ms):",
           " ".join(f"{k}:{t:.2f}" for k, t in zip(slow_t.sizes, slow_ms)))
+    warm = torch.as_tensor(frames[:BATCH], device="cuda")
     with torch.inference_mode():
         fast_dev = device_ms(lambda: fast(warm), iters=5)
-        slow_dev = device_ms(lambda: slow(warm[:3]), iters=5)
-    print(f"  device time per call (profiler): fast tier at 16 frames {_us(fast_dev)},"
-          f" slow tier at 3 frames {_us(slow_dev)}")
+        slow_dev = {k: device_ms(lambda: slow(warm[:k]), iters=5) for k in (3, BATCH)}
+    print(f"  device time per call (profiler): fast tier at {BATCH} frames {_us(fast_dev)},"
+          + ",".join(f" slow tier at {k} frames {_us(t)}" for k, t in slow_dev.items()))
     # the same stream on a fresh server, inside one trace of the card's
     # activity: device time over the window's wall time.  The profiler's own
     # host cost lies inside the window, so the idle share is an upper bound.
@@ -287,8 +342,82 @@ def main() -> int:
                                 host_ops=False)
     idle = "not measured" if busy_ms is None else f"{1 - busy_ms / traced_ms:.4f}"
     print(f"  traced repeat: device busy {busy_ms} ms of {traced_ms:.3f} ms wall"
-          f" ({N_FRAMES / traced_ms * 1e3:.2f} frames/s); device idle share {idle};"
+          f" ({len(frames) / traced_ms * 1e3:.2f} frames/s); device idle share {idle};"
           f" same summary as the counted run: {box[0].summary() == metrics.summary()}")
+    return launches
+
+
+def warm_up(label, fast, slow, frames):
+    """cuDNN and cuBLAS set up each new batch shape on its first call (0.1-0.2
+    s on an H100); a server warms every batch size it can see before serving."""
+    import torch
+
+    t0 = time.perf_counter()
+    warm = torch.as_tensor(frames[:BATCH], device="cuda")
+    with torch.inference_mode():
+        fast(warm)
+        for k in range(1, BATCH + 1):
+            slow(warm[:k])
+    torch.cuda.synchronize()
+    print(f"set-up: {label} warm-up of the fast tier at {BATCH} and the slow tier at 1..{BATCH}"
+          f" frames {time.perf_counter() - t0:.2f} s")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+
+    from repro_torch.configs.deit_b import FULL as DEIT_B
+    from repro_torch.configs.resnet_50 import FULL
+    from repro_torch.core.cascade import fast_pass
+    from repro_torch.data.video import VideoDataConfig, make_dataset
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.fused_calib_gate import kernel as cg_kernel
+    from repro_torch.kernels.fused_calib_gate.ref import calib_gate_ref
+    from repro_torch.models.resnet import ResNet
+    from repro_torch.models.vit import ViT
+    from repro_torch.quant.quantize import qdq_tree
+
+    # ---- 1. card and build ------------------------------------------------ #
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
+    build_phase([cg_kernel.LIBRARY, fa_kernel.LIBRARY])
+
+    # ---- 2. kernels vs plain versions ------------------------------------- #
+    cg_rows, cg_err = calib_gate_phase(torch, cg_kernel.calib_gate, calib_gate_ref)
+    fa_rows, fa_err = flash_phase(torch, fa_kernel.flash_attention, attention_ref)
+
+    # ---- 3. path 1: ResNet-50 slow tier ----------------------------------- #
+    t0 = time.perf_counter()
+    fast = ResNet(FULL, generator=torch.Generator().manual_seed(0), device="cuda")
+    fast.load_state_dict(qdq_tree(fast.state_dict()))  # int8 per-channel "NPU" weights
+    slow = ResNet(FULL, generator=torch.Generator().manual_seed(1), device="cuda")
+    data = make_dataset(VideoDataConfig(n_classes=FULL.n_classes, img_res=FULL.img_res,
+                                        frames_per_video=16), N_FRAMES // 16, seed=0)
+    frames, labels = data["frames"], data["labels"]
+    check(frames.shape == (N_FRAMES, 224, 224, 3), f"frames {frames.shape}")
+    print(f"set-up: weights and {N_FRAMES} frames {time.perf_counter() - t0:.2f} s")
+    warm_up("path 1", fast, slow, frames)
+    n_batches = -(-N_FRAMES // BATCH)
+    serve_phase("path 1, ResNet-50 FULL fast and slow tiers", fast, slow, frames, labels,
+                {"calib_gate": (cg_kernel.calib_gate, n_batches),
+                 "flash_attention": (fa_kernel.flash_attention, 0)})
+
+    # ---- 3b. path 2: DeiT-B slow tier ------------------------------------- #
+    t0 = time.perf_counter()
+    deit = ViT(DEIT_B, generator=torch.Generator().manual_seed(1), device="cuda")
+    print(f"set-up: DeiT-B FULL weights ({sum(p.numel() for p in deit.parameters())} parameters)"
+          f" {time.perf_counter() - t0:.2f} s")
+    warm_up("path 2", fast, deit, frames)
+    launches = serve_phase("path 2, ResNet-50 FULL fast tier, DeiT-B FULL slow tier", fast, deit,
+                           frames, labels,
+                           {"calib_gate": (cg_kernel.calib_gate, n_batches),
+                            "flash_attention": (fa_kernel.flash_attention, DEIT_B.n_layers * n_batches)})
 
     # ---- 4. card against CPU ---------------------------------------------- #
     torch.backends.cudnn.allow_tf32 = False
@@ -306,15 +435,37 @@ def main() -> int:
           f" max |logit| err {float((lg - lc).abs().max()):.3e} of |logit| <= {float(lc.abs().max()):.3f},"
           f" fast preds equal {int((pg.cpu() == pc).sum())}/16")
 
+    # ---- 4b. DeiT-B card against CPU --------------------------------------- #
+    deit_cpu = ViT(DEIT_B, device="cpu")
+    deit_cpu.load_state_dict(deit.state_dict())
+    two = torch.as_tensor(frames[:2])
+    before = fa_kernel.flash_attention.launches
+    with torch.inference_mode():
+        dg, dc = deit(two.cuda()).cpu(), deit_cpu(two)
+    check(fa_kernel.flash_attention.launches == before + DEIT_B.n_layers, "DeiT-B forward launches")
+    logit_err = float((dg - dc).abs().max())
+    check(bool(torch.isfinite(dg).all()) and dg.shape == (2, DEIT_B.n_classes), f"DeiT-B logits {dg.shape}")
+    check(logit_err <= CPU_LOGIT_ATOL, f"DeiT-B card vs CPU logit err {logit_err} > {CPU_LOGIT_ATOL}")
+    print(f"DeiT-B card vs CPU, two frames, TF32 off: max |logit| err {logit_err:.3e}"
+          f" (atol {CPU_LOGIT_ATOL}) of |logit| <= {float(dc.abs().max()):.3f},"
+          f" argmax equal {bool((dg.argmax(-1) == dc.argmax(-1)).all())}")
+
     # ---- 5. result -------------------------------------------------------- #
-    main_row = rows[0]
+    cg_row, fa_row = cg_rows[0], fa_rows[0]
     kernels = [dict(name="calib_gate", route="cuda",
                     source="src/repro_torch/kernels/fused_calib_gate/csrc/calib_gate.cu",
                     replaces="src/repro/kernels/fused_calib_gate/kernel.py:48",
-                    launches=launches["calib_gate"], max_abs_err=max_err,
-                    ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-                    bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-                    library_ms=None)]
+                    launches=launches["calib_gate"], max_abs_err=cg_err,
+                    ms=cg_row["ms"], plain_ms=cg_row["plain_ms"],
+                    bound_ms=cg_row["bound_ms"], bound_by=cg_row["bound_by"],
+                    library_ms=None),
+               dict(name="flash_attention", route="cuda",
+                    source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                    replaces="src/repro/kernels/flash_attention/kernel.py:62",
+                    launches=launches["flash_attention"], max_abs_err=fa_err,
+                    ms=fa_row["ms"], plain_ms=fa_row["plain_ms"],
+                    bound_ms=fa_row["bound_ms"], bound_by=fa_row["bound_by"],
+                    library_ms=fa_row["library_ms"])]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,9 +3,19 @@
 ``params_from_jax`` takes the reference's nested parameter dict with
 numpy leaves (``jax.tree.map(np.asarray, params)``; no JAX needed here)
 and returns a flat ``{dotted.name: tensor}`` state dict that keeps the
-JAX leaf names.  Layouts change where PyTorch's differ: conv kernels
-HWIO -> OIHW, dense ``w`` (in, out) -> ``(out, in)`` as ``F.linear`` takes
-it.  Values are copied exactly; bfloat16 leaves stay bfloat16.
+JAX leaf names.  Stacked layers (``layers.all.<leaf>``, leading axis
+``n_layers``) are unstacked into ``layers.<i>.<leaf>``.  These leaves
+change layout, to the ones ``F.conv2d`` and ``F.linear`` take:
+
+- conv ``w`` HWIO -> OIHW;
+- dense ``w``, ``mlp.wi`` and ``mlp.wo`` ``(in, out)`` -> ``(out, in)``;
+- attention ``wqkv`` ``(3, d, H, Dh)`` -> ``(3·H·Dh, d)`` and ``bqkv``
+  ``(3, H, Dh)`` -> ``(3·H·Dh,)``, so the projection's output splits as
+  (3, H, Dh);
+- attention ``wo`` ``(H, Dh, d)`` -> ``(d, H·Dh)``.
+
+Every other leaf keeps its shape.  Values are copied exactly; bfloat16
+leaves stay bfloat16.
 """
 from __future__ import annotations
 
@@ -20,17 +30,40 @@ def _to_tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(a))  # a writable copy
 
 
+def _layout(key: str, t: torch.Tensor) -> torch.Tensor:
+    if key == "w" and t.ndim == 4:
+        return t.permute(3, 2, 0, 1)  # HWIO -> OIHW
+    if key in ("w", "wi", "wo") and t.ndim == 2:
+        return t.t()  # (in, out) -> (out, in)
+    if key == "wqkv":
+        return t.permute(0, 2, 3, 1).reshape(-1, t.shape[1])  # (3, d, H, Dh) -> (3·H·Dh, d)
+    if key == "bqkv":
+        return t.reshape(-1)
+    if key == "wo" and t.ndim == 3:
+        return t.reshape(-1, t.shape[-1]).t()  # (H, Dh, d) -> (d, H·Dh)
+    return t
+
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked tree: every leaf indexed on its leading axis."""
+    return {k: _layer(v, i) if isinstance(v, dict) else np.asarray(v)[i] for k, v in tree.items()}
+
+
+def _n_layers(tree: dict) -> int:
+    leaf = next(iter(tree.values()))
+    return _n_layers(leaf) if isinstance(leaf, dict) else np.asarray(leaf).shape[0]
+
+
 def params_from_jax(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
     for key, val in tree.items():
         name = f"{prefix}{key}"
+        if key == "layers" and isinstance(val, dict) and set(val) == {"all"}:
+            for i in range(_n_layers(val["all"])):
+                out.update(params_from_jax(_layer(val["all"], i), prefix=f"{name}.{i}."))
+            continue
         if isinstance(val, dict):
             out.update(params_from_jax(val, prefix=f"{name}."))
             continue
-        t = _to_tensor(val)
-        if key == "w" and t.ndim == 4:
-            t = t.permute(3, 2, 0, 1)  # HWIO -> OIHW
-        elif key == "w" and t.ndim == 2:
-            t = t.t()  # (in, out) -> (out, in)
-        out[name] = t.contiguous()
+        out[name] = _layout(key, _to_tensor(val)).contiguous()
     return out

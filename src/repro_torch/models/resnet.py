@@ -22,6 +22,7 @@ from torch import nn
 
 from repro_torch.configs.base import ResNetConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import Dense
 
 
 def _same_pad(n: int, k: int, stride: int) -> tuple[int, int]:
@@ -69,16 +70,6 @@ class Bottleneck(nn.Module):
         return F.relu(y + idn)
 
 
-class Head(nn.Module):
-    def __init__(self, d: int, n_classes: int):
-        super().__init__()
-        self.w = nn.Parameter(torch.zeros(n_classes, d))
-        self.b = nn.Parameter(torch.zeros(n_classes))
-
-    def forward(self, x):
-        return F.linear(x, self.w, self.b)
-
-
 class ResNet(nn.Module):
     """``ResNet(cfg, generator=g)`` draws weights as ``models/ptree.py``
     does (normal, std 1/sqrt(fan_in); conv fan-in k·k·cin, head fan-in
@@ -100,7 +91,7 @@ class ResNet(nn.Module):
                 blocks[f"b{b}"] = Bottleneck(cin, mid, cout, stride, downsample=(b == 0))
                 cin = cout
             setattr(self, f"stage{i}", blocks)
-        self.head = Head(cin, cfg.n_classes)
+        self.head = Dense(cin, cfg.n_classes)
         if generator is not None:
             self.reset_parameters(generator)
         self.to(resolve_device(device))

@@ -5,18 +5,25 @@ runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Kernel against plain version: ``calib`` within 1e-6 (the row sum in
-another order), ``gate`` exact.  Card against CPU through a whole SMOKE
-fast pass, TF32 off: ``conf`` within 1e-5.
+another order), ``gate`` exact; attention within 2e-5 in float32 (the
+softmax summed in another order) and 3e-2 in bfloat16 (one bf16 rounding
+of the output).  Card against CPU, TF32 off: through a whole SMOKE fast
+pass ``conf`` within 1e-5, through a ``deit-smoke`` forward the logits
+within 1e-4.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.deit_b import SMOKE as DEIT_SMOKE
 from repro_torch.configs.resnet_50 import SMOKE
 from repro_torch.core.cascade import fast_pass
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused_calib_gate import kernel as cg_kernel
 from repro_torch.kernels.fused_calib_gate.ref import calib_gate_ref
 from repro_torch.models.resnet import ResNet
+from repro_torch.models.vit import ViT
 from repro_torch.quant.quantize import qdq_tree
 
 PLATT = [(-6.0, 2.0, 0.7), (-1.0, 0.0, 0.5), (-20.0, 5.0, 0.3)]
@@ -89,5 +96,91 @@ def test_fast_pass_card_matches_cpu(cuda_device):
         assert cg_kernel.calib_gate.launches == before + 1
         assert cg.is_cuda and pg.is_cuda
         torch.testing.assert_close(cg.cpu(), cc, rtol=0, atol=1e-5)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _qkv(B, Sq, Sk, H, D, seed, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.standard_normal((B, S, H, D)).astype(np.float32),
+                                 device=device).to(dtype) for S in (Sq, Sk, Sk))
+
+
+# the path's shapes, the reference sweep's, ragged Sq != Sk and S = 1
+FLASH_CASES = [(16, 198, 198, 12, 64, False), (3, 198, 198, 12, 64, False),
+               (1, 256, 256, 2, 64, True), (1, 256, 256, 2, 64, False),
+               (2, 512, 512, 4, 64, True), (2, 512, 512, 4, 64, False),
+               (2, 384, 384, 2, 128, True), (2, 384, 384, 2, 128, False),
+               (1, 1024, 1024, 1, 64, True), (1, 1024, 1024, 1, 64, False),
+               (1, 100, 300, 2, 64, True), (1, 300, 100, 2, 128, True),
+               (1, 1, 1, 1, 64, False), (2, 1, 1, 3, 128, True),
+               (5, 18, 18, 4, 16, False), (2, 70, 70, 3, 16, True)]  # deit-smoke's head dim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal", FLASH_CASES)
+def test_flash_attention_cuda_matches_plain_version(cuda_device, B, Sq, Sk, H, D, causal):
+    q, k, v = _qkv(B, Sq, Sk, H, D, seed=Sq * 7 + Sk, device=cuda_device)
+    before = fa_kernel.flash_attention.launches
+    out = fa_kernel.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.launches == before + 1
+    assert out.shape == (B, Sq, H, D) and out.dtype == torch.float32
+    torch.testing.assert_close(out, attention_ref(q, k, v, causal=causal), rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_bf16(cuda_device):
+    q, k, v = _qkv(2, 256, 256, 2, 64, seed=7, device=cuda_device, dtype=torch.bfloat16)
+    out = fa_kernel.flash_attention(q, k, v, causal=True)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), attention_ref(q, k, v, causal=True).float(),
+                               rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_reads_strided_views(cuda_device):
+    """q, k, v as views into one fused projection (inner stride 1), as the ViT passes them."""
+    rng = np.random.default_rng(5)
+    qkv = torch.as_tensor(rng.standard_normal((3, 198, 3, 12, 64)).astype(np.float32), device=cuda_device)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    got = fa_kernel.flash_attention(q, k, v, causal=False)
+    want = fa_kernel.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=False)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_rejects_what_it_cannot_take(cuda_device):
+    q, k, v = _qkv(1, 16, 16, 2, 64, seed=0, device=cuda_device)
+    before = fa_kernel.flash_attention.launches
+    with pytest.raises(TypeError):
+        fa_kernel.flash_attention(q.half(), k.half(), v.half(), causal=False)
+    with pytest.raises(ValueError, match="head dims"):
+        fa_kernel.flash_attention(q[..., :32], k[..., :32], v[..., :32], causal=False)
+    with pytest.raises(ValueError, match="head dims"):
+        fa_kernel.flash_attention(q[..., :24], k[..., :24], v[..., :24], causal=False)
+    with pytest.raises(ValueError, match="inner stride"):
+        fa_kernel.flash_attention(q.transpose(2, 3), k, v, causal=False)
+    with pytest.raises(ValueError, match="do not agree"):
+        fa_kernel.flash_attention(q, k[:, :, :1], v, causal=False)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        fa_kernel.flash_attention(q, k.cpu(), v, causal=False)
+    assert fa_kernel.flash_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_deit_forward_card_matches_cpu(cuda_device):
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = ViT(DEIT_SMOKE, generator=torch.Generator().manual_seed(0), device="cpu")
+        card = ViT(DEIT_SMOKE, device=cuda_device)
+        card.load_state_dict(cpu.state_dict())
+        x = torch.as_tensor(np.random.default_rng(3).standard_normal((5, 32, 32, 3)).astype(np.float32))
+        before = fa_kernel.flash_attention.launches
+        with torch.inference_mode():
+            lc, lg = cpu(x), card(x.to(cuda_device))
+        assert fa_kernel.flash_attention.launches == before + DEIT_SMOKE.n_layers
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
