@@ -6,20 +6,30 @@
 Needs a CUDA GPU, the CUDA toolkit (``nvcc``) and this checkout's ``src/``;
 without them it exits non-zero before printing any result.  Phases:
 
-  1. card: ``nvidia-smi`` name and power limit; build the port's kernels;
+  1. card: ``nvidia-smi`` name and power limit; build the port's three
+     kernels, one ``nvcc`` per source, all started together;
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at wider, ragged and extreme ones, with times
-     (and, for attention, ``scaled_dot_product_attention``'s as a yardstick);
+     (and, for attention, ``scaled_dot_product_attention``'s and, for the
+     int8 matmul, ``torch._int_mm``'s as yardsticks);
   3. path 1: ``CascadeServer(use_fused=True)`` serving 256 synthetic
      224 px frames with two full-width ResNet-50 tiers (random weights from
      seeds; the fast tier int8 through ``qdq_tree``);
      3b. path 2: the same server and stream with a DeiT-B slow tier, whose
      every attention launches the flash-attention kernel.
+     3c. path 3: the slow tier's f(batch) sweep on the card (the int8-matmul
+     and flash-attention kernels), its best fit rescaled to T^o as the
+     replicas' continuous-batching curve, then ``MultiStreamServer`` with
+     8 streams x 64 frames over a 2-cell, 2-replica edge fabric (ResNet-50
+     FULL fast tier, one calib-gate launch per round over 128 frames;
+     DeiT-B FULL slow tier, one call per round).
      Each path's kernel launch counts are set to 0 just before its run and
      read just after; then the same stream runs again under
      ``torch.profiler`` for the device's idle share;
   4. one batch's fast pass on the card against the same pass on the CPU,
-     and (4b) DeiT-B's logits on two frames likewise, TF32 off;
+     (4b) DeiT-B's logits on two frames likewise, TF32 off, and (4c) the
+     multi-stream engine with the synthetic tiers on the card against the
+     CPU;
   5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, and the script exits non-zero.
@@ -40,6 +50,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
 CALIB_ATOL = 1e-6  # kernel vs plain version on the card: one float32 row sum
 ATTN_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}  # softmax summed in another order; one bf16 rounding
 CPU_CONF_ATOL = 1e-5  # card vs CPU through 53 float32 convolutions, TF32 off
@@ -49,6 +60,9 @@ N_FRAMES = 256
 BATCH = 16
 ACC_SERVER = (0.35, 0.5, 0.6, 0.66, 0.7)  # fixed ladder: there are no trained weights
 BW_MBPS = 5.0
+N_STREAMS = 8  # path 3: streams x frames each, 4 rounds of 16 frames a stream
+STREAM_FRAMES = 64
+BATCH_WINDOW_S = 0.02  # path 3: each replica's admission window
 
 
 def check(cond: bool, msg: str) -> None:
@@ -140,11 +154,14 @@ class TimedTier:
 
 
 def build_phase(libraries) -> None:
-    """Phase 1: build every kernel's library and show what ``ptxas`` made."""
+    """Phase 1: build every kernel's library, one ``nvcc`` per source
+    started together, and show what ``ptxas`` made."""
+    from repro_torch.kernels.build import build_all
+
     t0 = time.perf_counter()
-    for lib in libraries:
-        lib.load()
-    print(f"built kernels in {time.perf_counter() - t0:.2f} s (nvcc -gencode arch=compute_90a,code=sm_90a)")
+    build_all(libraries)
+    print(f"built {len(libraries)} kernel sources concurrently in {time.perf_counter() - t0:.2f} s"
+          " (nvcc -gencode arch=compute_90a,code=sm_90a)")
     for lib in libraries:
         for line in lib.ptxas_log.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
@@ -160,6 +177,7 @@ def calib_gate_phase(torch, calib_gate, calib_gate_ref):
     extreme[1] = 1e4
     extreme[2, ::2] = -1e4
     cases = [("main path", torch.randn(16, 1000, generator=g, device="cuda") * 3),
+             ("8-stream round", torch.randn(N_STREAMS * BATCH, 1000, generator=g, device="cuda") * 3),
              ("wide", torch.randn(128, 4096, generator=g, device="cuda") * 3),
              ("ragged", torch.randn(37, 1001, generator=g, device="cuda") * 3),
              ("vocab 152k", torch.randn(8, 152064, generator=g, device="cuda") * 3),
@@ -191,11 +209,68 @@ def calib_gate_phase(torch, calib_gate, calib_gate_ref):
         rows.append(dict(case=name, B=B, V=V, bound_ms=bound_ms, bound_by=bound_by,
                          ms=ms if dev_ms is None else dev_ms,
                          plain_ms=plain_ms if plain_dev_ms is None else plain_dev_ms))
-        print(f"  {name:11s} ({B:4d},{V:6d})  kernel loop {_us(ms)} device {_us(dev_ms)}"
+        print(f"  {name:14s} ({B:4d},{V:6d})  kernel loop {_us(ms)} device {_us(dev_ms)}"
               f" | plain loop {_us(plain_ms)} device {_us(plain_dev_ms)}"
               f" | bound {_us(bound_ms)} ({bound_by})")
     print(f"  max |calib - plain| over all shapes: {max_err:.3e} (atol {CALIB_ATOL}); gates equal;"
           " no single PyTorch call computes this op, so library_ms is null")
+    return rows, max_err
+
+
+def int8_bound(M, K, N):
+    """Least time (ms) for the card, and what bounds it: x_q, w_q and both
+    scales read once and the float32 output written once, against 2·M·N·K
+    int8 operations at the dense int8 tensor-core peak."""
+    n_bytes = M * K + K * N + 4 * M + 4 * N + M * N * 4
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 2 * M * N * K / INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def int8_phase(torch, i8_kernel, i8_ref):
+    """Phase 2: the int8-matmul kernel against its plain version on the card:
+    the int32 product and the float32 output bit-equal, the bfloat16 output
+    equal after the same one rounding; times beside ``torch._int_mm`` (the
+    int32 product alone, without the epilogue)."""
+    from repro_torch.slowtier.sweep import BATCH_SIZES, SWEEP_K, SWEEP_N, SWEEP_ROWS
+
+    cases = [(f"sweep b={b}", SWEEP_ROWS * b, SWEEP_K, SWEEP_N) for b in BATCH_SIZES]
+    cases += [("ragged", 37, 100, 77), ("bench_kernels", 1024, 4096, 4096),
+              ("DeiT-B qkv x16", 3168, 768, 2304), ("DeiT-B fc1 x16", 3168, 768, 3072),
+              ("DeiT-B fc2 x16", 3168, 3072, 768)]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows, max_err = [], 0.0
+    print("int8_matmul vs int8_matmul_ref (float32 output timed); device time per call from the"
+          " profiler; torch._int_mm is the int32 product only:")
+    for name, M, K, N in cases:
+        xq, xs = i8_ref.quantize_rows(torch.randn(M, K, generator=g, device="cuda"))
+        wq, ws = i8_ref.quantize_cols(torch.randn(K, N, generator=g, device="cuda"))
+        acc = i8_kernel.int8_matmul_acc(xq, wq)
+        check(torch.equal(acc, i8_ref.int8_acc_ref(xq, wq)), f"{name} {(M, K, N)}: int32 product differs")
+        for dtype in (torch.float32, torch.bfloat16):
+            out = i8_kernel.int8_matmul(xq, xs, wq, ws, out_dtype=dtype)
+            ref = i8_ref.int8_matmul_ref(xq, xs, wq, ws, dtype)
+            check(out.dtype == dtype and out.shape == (M, N), f"{name}: {out.dtype} {tuple(out.shape)}")
+            check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+            max_err = max(max_err, float((out.float() - ref.float()).abs().max()))
+            check(torch.equal(out, ref), f"{name} {(M, K, N)} {dtype}: not bit-equal to the plain version")
+        # where the profiler records no device time, the loops stand in
+        # (they also carry the host's launch cost)
+        dev = (device_ms(lambda: i8_kernel.int8_matmul(xq, xs, wq, ws))
+               or cuda_ms(lambda: i8_kernel.int8_matmul(xq, xs, wq, ws), iters=50, warmup=5))
+        plain = (device_ms(lambda: i8_ref.int8_matmul_ref(xq, xs, wq, ws))
+                 or cuda_ms(lambda: i8_ref.int8_matmul_ref(xq, xs, wq, ws), iters=50, warmup=5))
+        lib = None
+        if M > 16 and K % 8 == 0 and N % 8 == 0:
+            check(torch.equal(torch._int_mm(xq, wq), acc), f"{name}: torch._int_mm disagrees")
+            lib = (device_ms(lambda: torch._int_mm(xq, wq))
+                   or cuda_ms(lambda: torch._int_mm(xq, wq), iters=50, warmup=5))
+        bound_ms, bound_by = int8_bound(M, K, N)
+        rows.append(dict(case=name, shape=(M, K, N), ms=dev, plain_ms=plain, library_ms=lib,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        print(f"  {name:15s} {str((M, K, N)):20s} bit-equal f32/bf16 | kernel device {_us(dev)}"
+              f" | plain device {_us(plain)} | _int_mm device {_us(lib)}"
+              f" | bound {_us(bound_ms)} ({bound_by})")
+    print(f"  max |kernel - plain| over every shape and output type: {max_err:.3e} (bit-equal)")
     return rows, max_err
 
 
@@ -226,6 +301,8 @@ def flash_phase(torch, flash_attention, attention_ref):
         for causal in (True, False):
             cases.append((f"sweep{'-causal' if causal else ''}", B, S, S, H, D, causal, f32))
     cases += [("bf16 causal", 2, 256, 256, 2, 64, True, bf16),
+              ("sweep b=1 bf16", 1, 256, 256, 4, 64, True, bf16),
+              ("sweep b=32 bf16", 32, 256, 256, 4, 64, True, bf16),
               ("Sq100 Sk300", 1, 100, 300, 2, 64, True, f32),
               ("S=1", 1, 1, 1, 1, 64, False, f32)]
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -265,7 +342,7 @@ def flash_phase(torch, flash_attention, attention_ref):
         rows.append(dict(case=name, shape=(B, Sq, Sk, H, D), causal=causal, dtype=tname, err=err,
                          ms=loop if dev is None else dev, plain_ms=plain_dev, library_ms=lib_dev,
                          bound_ms=bound_ms, bound_by=bound_by))
-        print(f"  {name:13s} {str((B, Sq, Sk, H, D)):22s} {tname:8s} err {err:.2e}"
+        print(f"  {name:15s} {str((B, Sq, Sk, H, D)):22s} {tname:8s} err {err:.2e}"
               f" | kernel device {_us(dev)} loop {_us(loop)} | plain device {_us(plain_dev)}"
               f" | SDPA device {_us(lib_dev)} (err {sdpa_err:.1e}) | bound {_us(bound_ms)} ({bound_by})")
     print(f"  max |kernel - plain|: float32 {max_err['float32']:.3e} (atol {ATTN_ATOL['float32']}),"
@@ -347,20 +424,150 @@ def serve_phase(label, fast, slow, frames, labels, counted):
     return launches
 
 
-def warm_up(label, fast, slow, frames):
+def multistream_phase(fast, deit, frames, labels, counted, flash_per_call):
+    """Phase 3c: the f(batch) sweep on the card, its fit as the replicas'
+    continuous-batching curve, then ``MultiStreamServer`` over the streams.
+    ``counted`` maps each kernel's name to its wrapper; every count is set
+    to 0 just before the sweep and read after it and after the serving run
+    (``flash_per_call`` attention launches per slow-tier call).  Then the
+    same streams run again under one trace of the card."""
+    import torch
+
+    from repro_torch.core.netsim import Uplink, mbps
+    from repro_torch.net import EdgeFabric, ReplicaPool
+    from repro_torch.serving.engine import MultiStreamServer, ServeConfig
+    from repro_torch.slowtier import ContinuousBatching
+    from repro_torch.slowtier.sweep import BATCH_SIZES, batch_sweep, latency_model_from_fit
+
+    S = frames.shape[0]
+    cfg = ServeConfig(batch_size=BATCH, use_fused=True, platt_ab=PLATT, acc_server=ACC_SERVER)
+    n_rounds = -(-frames.shape[1] // cfg.batch_size)
+    for fn in counted.values():
+        fn.launches = 0
+
+    t0 = time.perf_counter()
+    sweep = batch_sweep(device="cuda", n_timing=5)
+    sweep_s = time.perf_counter() - t0
+    after_sweep = {name: fn.launches for name, fn in counted.items()}
+    per_kernel = len(BATCH_SIZES) * (1 + 5)  # one warm-up and five timed calls a batch size
+    check(after_sweep["int8_matmul"] == per_kernel and after_sweep["flash_attention"] == per_kernel,
+          f"sweep launches {after_sweep}, expected {per_kernel} int8_matmul and flash_attention")
+    print(f"path 3 on {card_line()}: f(batch) sweep on the card ({sweep_s:.2f} s; CUDA events,"
+          f" 5 timed calls a batch size; launches {after_sweep})")
+    for r in sweep["rows"]:
+        print(f"  batch {r['batch']:2d}: attention {r['attn_us']:9.1f} us, int8 matmul"
+              f" {r['matmul_us']:9.1f} us, total {r['total_s'] * 1e6:9.1f} us")
+    for kind, fit in sweep["fits"].items():
+        print(f"  fit {kind:6s}: coeffs {fit['coeffs']} rmse {fit['rmse_us']} us")
+    model = latency_model_from_fit(sweep["batch_fit"], cfg.server_time)
+    batching = ContinuousBatching(model, window_s=BATCH_WINDOW_S, max_batch=BATCH)
+    print(f"  best: {sweep['batch_fit']['kind']}; rescaled so f(1) = T^o = {cfg.server_time}: {model};"
+          f" f(16) = {float(model.batch_latency(16)):.6f} s;"
+          f" window {BATCH_WINDOW_S} s, max batch {BATCH}")
+
+    def fabric():
+        pool = ReplicaPool(2, [cfg.server_time, 1.5 * cfg.server_time], serial=True,
+                           batching=batching)
+        ups = [Uplink(bandwidth_bps=mbps(BW_MBPS), latency=0.05, server_time=cfg.server_time,
+                      seed=c) for c in (0, 1)]
+        return EdgeFabric(ups, pool, n_streams=S, placement="jsq")
+
+    fast_t, slow_t = TimedTier(fast, "fast"), TimedTier(deit, "slow")
+    server = MultiStreamServer(cfg, fast_t, slow_t, None, None, n_streams=S, fabric=fabric(),
+                               policy="cbo", device="cuda")
+    marks = []  # (host clock, fast calls, slow calls) at the end of each round
+    server.round_hook = lambda rec: marks.append((time.perf_counter(), len(fast_t.events),
+                                                  len(slow_t.events)))
+    t0 = time.perf_counter()
+    metrics = server.process_streams(frames, labels)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    served = {name: launches[name] - after_sweep[name] for name in launches}
+
+    n_slow = len(slow_t.events)
+    check(served["calib_gate"] == n_rounds, f"path 3: calib_gate launched {served['calib_gate']}"
+          f" times in {n_rounds} rounds")
+    check(served["flash_attention"] == flash_per_call * n_slow, f"path 3: flash_attention launched"
+          f" {served['flash_attention']} times for {n_slow} slow-tier calls")
+    check(served["int8_matmul"] == 0, "path 3: the serving run launched int8_matmul")
+    check(len(fast_t.events) == n_rounds and set(fast_t.sizes) == {S * cfg.batch_size},
+          f"path 3: fast tier calls {fast_t.sizes}")
+    check(metrics.n_frames == frames.shape[0] * frames.shape[1], f"path 3: served {metrics.n_frames} frames")
+    check(metrics.n_offloaded + metrics.n_deadline_miss > 0, "path 3: no frame escalated")
+    check(all(np.isfinite(x) for m in metrics.per_stream for x in m.latencies), "path 3: non-finite latency")
+    fast_ms, slow_ms = fast_t.ms(), slow_t.ms()
+    print(f"  MultiStreamServer: {S} streams x {frames.shape[1]} frames, {n_rounds} rounds, 2 cells x"
+          f" {BW_MBPS} Mbps, 2 replicas (T, 1.5 T), jsq placement, cuDNN TF32"
+          f" {torch.backends.cudnn.allow_tf32}, matmul TF32 {torch.backends.cuda.matmul.allow_tf32}")
+    print("  AggregateMetrics.summary():", json.dumps(metrics.summary()))
+    print(f"  frames/s {metrics.n_frames / wall:.2f} (wall {wall:.3f} s); launches in the serving run"
+          f" {served}; over the whole path {launches}; pool.avg_batch"
+          f" {server.fabric.pool.avg_batch:.4f}; slow-tier batch sizes {slow_t.sizes}")
+    prev_t, prev_f, prev_s = t0, 0, 0
+    for i, (t, nf, ns) in enumerate(marks):
+        f_ms = sum(fast_ms[prev_f:nf])
+        s_ms = sum(slow_ms[prev_s:ns])
+        round_ms = (t - prev_t) * 1e3
+        print(f"  round {i}: wall {round_ms:8.3f} ms = fast tier {f_ms:8.3f} + slow tier {s_ms:8.3f}"
+              f" (events) + host rest {round_ms - f_ms - s_ms:8.3f}")
+        prev_t, prev_f, prev_s = t, nf, ns
+
+    again = MultiStreamServer(cfg, fast, deit, None, None, n_streams=S, fabric=fabric(),
+                              policy="cbo", device="cuda")
+    box = []
+    busy_ms, traced_ms = traced(lambda: box.append(again.process_streams(frames, labels)),
+                                host_ops=False)
+    idle = "not measured" if busy_ms is None else f"{1 - busy_ms / traced_ms:.4f}"
+    print(f"  traced repeat: device busy {busy_ms} ms of {traced_ms:.3f} ms wall"
+          f" ({metrics.n_frames / traced_ms * 1e3:.2f} frames/s); device idle share {idle};"
+          f" same summary as the counted run: {box[0].summary() == metrics.summary()}")
+    return launches
+
+
+def warm_up(label, fast, slow, frames, n_fast=BATCH, n_slow=BATCH):
     """cuDNN and cuBLAS set up each new batch shape on its first call (0.1-0.2
-    s on an H100); a server warms every batch size it can see before serving."""
+    s on an H100); a server warms every batch size it can see before serving:
+    the fast tier at ``n_fast`` frames, the slow tier at 1..``n_slow``."""
     import torch
 
     t0 = time.perf_counter()
-    warm = torch.as_tensor(frames[:BATCH], device="cuda")
+    warm = torch.as_tensor(frames[:max(n_fast, n_slow)], device="cuda")
     with torch.inference_mode():
-        fast(warm)
-        for k in range(1, BATCH + 1):
+        fast(warm[:n_fast])
+        for k in range(1, n_slow + 1):
             slow(warm[:k])
     torch.cuda.synchronize()
-    print(f"set-up: {label} warm-up of the fast tier at {BATCH} and the slow tier at 1..{BATCH}"
+    print(f"set-up: {label} warm-up of the fast tier at {n_fast} and the slow tier at 1..{n_slow}"
           f" frames {time.perf_counter() - t0:.2f} s")
+
+
+def multistream_card_vs_cpu() -> None:
+    """Phase 4c: ``MultiStreamServer`` with the synthetic closed-form tiers
+    over a live-batching fabric, on the card and on the CPU: the same
+    decisions, latencies and accuracies (the tiers are exact sums and a
+    resize; the control plane is host numpy either way)."""
+    from repro_torch.core.netsim import Uplink, mbps
+    from repro_torch.net import EdgeFabric, ReplicaPool
+    from repro_torch.serving.engine import MultiStreamServer, ServeConfig
+    from repro_torch.serving.synthetic import synthetic_streams, synthetic_tiers
+    from repro_torch.slowtier import ContinuousBatching, LinearBatch
+
+    imgs, labels = synthetic_streams(12, 64)
+    out = {}
+    for device in ("cuda", "cpu"):
+        cfg = ServeConfig(resolutions=(4, 8), acc_server=(0.7, 0.99), frame_rate=32.0)
+        pool = ReplicaPool(2, [cfg.server_time, 1.5 * cfg.server_time],
+                           batching=ContinuousBatching(LinearBatch(0.03125, 0.0078125), window_s=0.03125))
+        ups = [Uplink(bandwidth_bps=mbps(30.0), latency=0.05, server_time=cfg.server_time, seed=c)
+               for c in (0, 1)]
+        fast, slow, cal = synthetic_tiers()
+        server = MultiStreamServer(cfg, fast, slow, cal, None, n_streams=12, device=device,
+                                   fabric=EdgeFabric(ups, pool, n_streams=12, placement="jsq"))
+        out[device] = server.process_streams(imgs, labels).summary()
+    check(out["cuda"] == out["cpu"], f"multi-stream engine card {out['cuda']} vs CPU {out['cpu']}")
+    check(out["cuda"]["offload_frac"] > 0, "multi-stream engine: nothing offloaded")
+    print("multi-stream engine, synthetic tiers, card vs CPU: equal summaries", json.dumps(out["cuda"]))
 
 
 def main() -> int:
@@ -378,6 +585,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.fused_calib_gate import kernel as cg_kernel
     from repro_torch.kernels.fused_calib_gate.ref import calib_gate_ref
+    from repro_torch.kernels.int8_matmul import kernel as i8_kernel
+    from repro_torch.kernels.int8_matmul import ref as i8_ref
     from repro_torch.models.resnet import ResNet
     from repro_torch.models.vit import ViT
     from repro_torch.quant.quantize import qdq_tree
@@ -386,11 +595,12 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
-    build_phase([cg_kernel.LIBRARY, fa_kernel.LIBRARY])
+    build_phase([cg_kernel.LIBRARY, fa_kernel.LIBRARY, i8_kernel.LIBRARY])
 
     # ---- 2. kernels vs plain versions ------------------------------------- #
     cg_rows, cg_err = calib_gate_phase(torch, cg_kernel.calib_gate, calib_gate_ref)
     fa_rows, fa_err = flash_phase(torch, fa_kernel.flash_attention, attention_ref)
+    i8_rows, i8_err = int8_phase(torch, i8_kernel, i8_ref)
 
     # ---- 3. path 1: ResNet-50 slow tier ----------------------------------- #
     t0 = time.perf_counter()
@@ -406,7 +616,8 @@ def main() -> int:
     n_batches = -(-N_FRAMES // BATCH)
     serve_phase("path 1, ResNet-50 FULL fast and slow tiers", fast, slow, frames, labels,
                 {"calib_gate": (cg_kernel.calib_gate, n_batches),
-                 "flash_attention": (fa_kernel.flash_attention, 0)})
+                 "flash_attention": (fa_kernel.flash_attention, 0),
+                 "int8_matmul": (i8_kernel.int8_matmul, 0)})
 
     # ---- 3b. path 2: DeiT-B slow tier ------------------------------------- #
     t0 = time.perf_counter()
@@ -414,10 +625,25 @@ def main() -> int:
     print(f"set-up: DeiT-B FULL weights ({sum(p.numel() for p in deit.parameters())} parameters)"
           f" {time.perf_counter() - t0:.2f} s")
     warm_up("path 2", fast, deit, frames)
-    launches = serve_phase("path 2, ResNet-50 FULL fast tier, DeiT-B FULL slow tier", fast, deit,
-                           frames, labels,
-                           {"calib_gate": (cg_kernel.calib_gate, n_batches),
-                            "flash_attention": (fa_kernel.flash_attention, DEIT_B.n_layers * n_batches)})
+    serve_phase("path 2, ResNet-50 FULL fast tier, DeiT-B FULL slow tier", fast, deit,
+                frames, labels,
+                {"calib_gate": (cg_kernel.calib_gate, n_batches),
+                 "flash_attention": (fa_kernel.flash_attention, DEIT_B.n_layers * n_batches),
+                 "int8_matmul": (i8_kernel.int8_matmul, 0)})
+
+    # ---- 3c. path 3: f(batch) sweep, multi-stream fabric ------------------ #
+    t0 = time.perf_counter()
+    n_ms = N_STREAMS * STREAM_FRAMES
+    data = make_dataset(VideoDataConfig(n_classes=FULL.n_classes, img_res=FULL.img_res,
+                                        frames_per_video=16), n_ms // 16, seed=0)
+    ms_frames = data["frames"].reshape(N_STREAMS, STREAM_FRAMES, *data["frames"].shape[1:])
+    ms_labels = data["labels"].reshape(N_STREAMS, STREAM_FRAMES)
+    print(f"set-up: {n_ms} frames ({ms_frames.nbytes / 1e6:.0f} MB) {time.perf_counter() - t0:.2f} s")
+    warm_up("path 3", fast, deit, data["frames"], n_fast=N_STREAMS * BATCH, n_slow=N_STREAMS * BATCH)
+    launches = multistream_phase(fast, deit, ms_frames, ms_labels,
+                                 {"calib_gate": cg_kernel.calib_gate,
+                                  "flash_attention": fa_kernel.flash_attention,
+                                  "int8_matmul": i8_kernel.int8_matmul}, DEIT_B.n_layers)
 
     # ---- 4. card against CPU ---------------------------------------------- #
     torch.backends.cudnn.allow_tf32 = False
@@ -450,8 +676,12 @@ def main() -> int:
           f" (atol {CPU_LOGIT_ATOL}) of |logit| <= {float(dc.abs().max()):.3f},"
           f" argmax equal {bool((dg.argmax(-1) == dc.argmax(-1)).all())}")
 
+    # ---- 4c. multi-stream engine card against CPU -------------------------- #
+    multistream_card_vs_cpu()
+
     # ---- 5. result -------------------------------------------------------- #
     cg_row, fa_row = cg_rows[0], fa_rows[0]
+    i8_row = max((r for r in i8_rows if r["case"].startswith("sweep")), key=lambda r: r["shape"][0])
     kernels = [dict(name="calib_gate", route="cuda",
                     source="src/repro_torch/kernels/fused_calib_gate/csrc/calib_gate.cu",
                     replaces="src/repro/kernels/fused_calib_gate/kernel.py:48",
@@ -465,7 +695,14 @@ def main() -> int:
                     launches=launches["flash_attention"], max_abs_err=fa_err,
                     ms=fa_row["ms"], plain_ms=fa_row["plain_ms"],
                     bound_ms=fa_row["bound_ms"], bound_by=fa_row["bound_by"],
-                    library_ms=fa_row["library_ms"])]
+                    library_ms=fa_row["library_ms"]),
+               dict(name="int8_matmul", route="cuda",
+                    source="src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",
+                    replaces="src/repro/kernels/int8_matmul/kernel.py:43",
+                    launches=launches["int8_matmul"], max_abs_err=i8_err,
+                    ms=i8_row["ms"], plain_ms=i8_row["plain_ms"],
+                    bound_ms=i8_row["bound_ms"], bound_by=i8_row["bound_by"],
+                    library_ms=i8_row["library_ms"])]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

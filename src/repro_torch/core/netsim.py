@@ -7,9 +7,16 @@ float64, exactly as the reference.
 
 Bandwidth is the constant rate times ``jitter``, a per-second factor
 drawn from ``default_rng((seed, second))`` (the reference's "pcg" mode).
-The reference's bandwidth traces and its ``jitter_mode="counter"``, which
-takes its bits from JAX's threefry generator, are not ported yet
-(ROADMAP A.7).
+The reference's bandwidth traces (``trace=``) and its
+``jitter_mode="counter"``, which takes its bits from JAX's threefry
+generator, are not ported yet (ROADMAP A.7): both raise.
+
+``transmit`` queues one transfer; ``upload_batch`` a whole round in array
+order (the wire only: transmission-complete times), which is what the edge
+fabric (``net/fabric.py``) routes each cell's uploads through;
+``transmit_batch`` is ``upload_batch`` plus the lumped server time and
+latency, the paper's single-server abstraction.  All of them move the same
+busy cursor and the same contention counters.
 """
 from __future__ import annotations
 
@@ -35,14 +42,23 @@ class Uplink:
     jitter: float = 0.0  # relative bandwidth jitter
     seed: int = 0
     jitter_mode: str = "pcg"
+    trace: Optional[object] = None  # bandwidth traces: not ported yet
     _busy_until: float = 0.0
     _jit_keys: Optional[np.ndarray] = field(default=None, repr=False)
     _jit_vals: Optional[np.ndarray] = field(default=None, repr=False)
+    # contention accounting (updated by transmit / upload_batch)
+    n_transfers: int = 0
+    busy_seconds: float = 0.0  # total wire time
+    queued_seconds: float = 0.0  # total head-of-line blocking across transfers
+    # per-row start times of the most recent upload_batch
+    last_starts: Optional[np.ndarray] = field(default=None, repr=False)
 
     def __post_init__(self):
         if self.jitter_mode == "counter":
             raise NotImplementedError(
                 "jitter_mode='counter' needs JAX's threefry bits; not ported yet (ROADMAP A.7)")
+        if self.trace is not None:
+            raise NotImplementedError("bandwidth traces are not ported yet (ROADMAP A.7)")
         if self.jitter_mode != "pcg":
             raise ValueError(f"jitter_mode must be 'pcg' or 'counter', got {self.jitter_mode!r}")
         self._jit_keys = np.zeros(0, dtype=np.int64)
@@ -76,7 +92,21 @@ class Uplink:
             base = base * self._jitter_factors(t.astype(np.int64))
         return base
 
+    def current_bandwidth(self, t: float) -> float:
+        return float(self.bandwidth_at(np.asarray([t]))[0])
+
     # -- transfers --------------------------------------------------------- #
+
+    def transmit(self, payload_bytes: float, t_submit: float) -> float:
+        """Queue one transfer; returns the time the *reply* lands."""
+        start = max(t_submit, self._busy_until)
+        bw = self.current_bandwidth(start)
+        end_tx = start + payload_bytes / bw
+        self._busy_until = end_tx
+        self.n_transfers += 1
+        self.busy_seconds += end_tx - start
+        self.queued_seconds += start - t_submit
+        return end_tx + self.server_time + self.latency
 
     def _lindley(self, tx: np.ndarray, subs: np.ndarray) -> np.ndarray:
         """end_i = max(t_submit_i, end_{i-1}) + tx_i with end_{-1} = busy,
@@ -85,17 +115,21 @@ class Uplink:
         eff = np.maximum(subs, self._busy_until) - (csum - tx)
         return np.maximum.accumulate(eff) + csum
 
-    def transmit_batch(self, payload_bytes, t_submit) -> np.ndarray:
+    def upload_batch(self, payload_bytes, t_submit) -> np.ndarray:
         """Queue many transfers in array order; returns the time each
-        *reply* lands (transmission end plus server time and latency).
-        Time-varying bandwidth is solved by fixed-point iteration over the
-        start times, with the serial loop as the safety net."""
+        *transmission* completes (no server time or latency) and updates the
+        busy cursor and the counters, exactly as one ``transmit`` per
+        element would.  Time-varying bandwidth is solved by fixed-point
+        iteration over the start times, with the serial loop as the safety
+        net."""
         payloads = np.asarray(payload_bytes, dtype=np.float64)
         subs = np.asarray(t_submit, dtype=np.float64)
         if payloads.size == 0:
+            self.last_starts = np.zeros(0, dtype=np.float64)
             return np.zeros(0, dtype=np.float64)
         if self.jitter <= 0:
-            end_tx = self._lindley(payloads / self.bandwidth_bps, subs)
+            tx = payloads / self.bandwidth_bps
+            end_tx = self._lindley(tx, subs)
         else:
             starts = np.maximum(subs, self._busy_until)
             for _ in range(_FIXED_POINT_SWEEPS):
@@ -110,10 +144,40 @@ class Uplink:
                 busy = self._busy_until
                 for i in range(len(payloads)):
                     s = max(subs[i], busy)
-                    busy = s + payloads[i] / self.bandwidth_at([s])[0]
+                    busy = s + payloads[i] / self.current_bandwidth(s)
                     end_tx[i] = busy
+                tx = end_tx - np.maximum(subs, np.r_[self._busy_until, end_tx[:-1]])
+        starts = end_tx - tx
+        self.last_starts = starts
         self._busy_until = float(end_tx[-1])
+        self.n_transfers += payloads.size
+        self.busy_seconds += float(tx.sum())
+        self.queued_seconds += float(np.clip(starts - subs, 0.0, None).sum())
+        return end_tx
+
+    def transmit_batch(self, payload_bytes, t_submit) -> np.ndarray:
+        """``upload_batch`` plus the lumped server+latency tail: reply-land
+        times under the paper's single-server abstraction."""
+        end_tx = self.upload_batch(payload_bytes, t_submit)
+        if end_tx.size == 0:
+            return end_tx
         return end_tx + self.server_time + self.latency
+
+    def would_land_at(self, payload_bytes: float, t_submit: float) -> float:
+        """Predicted reply-land time of the next transfer, without queueing it."""
+        start = max(t_submit, self._busy_until)
+        bw = self.current_bandwidth(start)
+        return start + payload_bytes / bw + self.server_time + self.latency
+
+    def utilization(self, horizon: float) -> float:
+        """Wire time over [0, horizon]; above 1.0 means overload."""
+        return self.busy_seconds / max(horizon, 1e-12)
+
+    def reset(self):
+        self._busy_until = 0.0
+        self.n_transfers = 0
+        self.busy_seconds = 0.0
+        self.queued_seconds = 0.0
 
 
 def png_size_model(res, *, base_res: int = 224, base_bytes: float = 60_000.0):

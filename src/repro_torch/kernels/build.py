@@ -4,8 +4,9 @@ Each kernel is one ``.cu`` file with a plain C interface, compiled for
 Hopper (``sm_90a``) into a shared library under ``build/repro_torch_kernels/``
 at the repository root (git-ignored), at first use.  The library's file
 name carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  Nothing here runs at
-import time.
+rebuilt and an unchanged one is loaded as it is.  ``build_all`` starts one
+``nvcc`` per source, all together, and loads each library when its own
+compiler has finished.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -48,22 +49,25 @@ class CudaLibrary:
         h = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         return BUILD_DIR / f"{self.source.stem}-{h}.so"
 
-    def _build(self) -> None:
-        """Run ``nvcc`` into a temporary file, then move it into place."""
+    def _start_build(self) -> tuple[subprocess.Popen, Path]:
+        """Start ``nvcc`` into a temporary file; ``_finish_build`` moves it into place."""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        self.ptxas_log = proc.stdout
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return proc, tmp
+
+    def _finish_build(self, proc: subprocess.Popen, tmp: Path) -> None:
+        self.ptxas_log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {self.source.name}:\n{proc.stdout}")
+            raise RuntimeError(f"nvcc failed for {self.source.name}:\n{self.ptxas_log}")
         os.replace(tmp, self.path)
 
     def load(self) -> ctypes.CDLL:
         """Build the library unless it exists, then load and bind it."""
         if self._lib is None:
             if not self.path.exists():
-                self._build()
+                self._finish_build(*self._start_build())
             lib = ctypes.CDLL(str(self.path))
             for name, argtypes in self.symbols.items():
                 fn = getattr(lib, name)
@@ -71,3 +75,21 @@ class CudaLibrary:
                 fn.restype = ctypes.c_int
             self._lib = lib
         return self._lib
+
+
+def build_all(libraries) -> None:
+    """Build every library not built yet, one ``nvcc`` per source, all
+    started together; then load each.  Raises after every compiler has
+    finished if any of them failed."""
+    started = [(lib, *lib._start_build()) for lib in libraries
+               if lib._lib is None and not lib.path.exists()]
+    errors = []
+    for lib, proc, tmp in started:
+        try:
+            lib._finish_build(proc, tmp)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    for lib in libraries:
+        lib.load()

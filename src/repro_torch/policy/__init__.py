@@ -1,9 +1,11 @@
-"""The offload decision plane (port of ``repro.policy``, single stream).
+"""The offload decision plane (port of ``repro.policy``): the
+single-stream ``PolicyRunner`` and the batched fleet ``FleetRunner``.
 
 Importing the package registers the built-in policies.
 """
 from repro_torch.policy.base import BacklogPolicy, OffloadPolicy, OneShotPolicy
-from repro_torch.policy.frontier import cbo_plan, optimal_schedule
+from repro_torch.policy.fleet import FleetRunner, FleetState
+from repro_torch.policy.frontier import cbo_plan, cbo_plan_many, optimal_schedule
 from repro_torch.policy.policies import (
     CBOPolicy,
     GreedyRatePolicy,
@@ -14,9 +16,15 @@ from repro_torch.policy.policies import (
 )
 from repro_torch.policy.registry import available_policies, make_policy, register, resolve_policies
 from repro_torch.policy.runner import BandwidthEstimator, PolicyRunner
-from repro_torch.policy.types import Env, Frame, Plan, plan_from_chain
+from repro_torch.policy.types import ActionTable, Env, EnvBatch, Frame, Plan, PlanBatch, plan_from_chain
 
 __all__ = [
+    "FleetRunner",
+    "FleetState",
+    "EnvBatch",
+    "PlanBatch",
+    "ActionTable",
+    "cbo_plan_many",
     "OffloadPolicy",
     "BacklogPolicy",
     "OneShotPolicy",

@@ -1,5 +1,5 @@
 """The ``OffloadPolicy`` protocol and backlog base classes
-(port of ``repro.policy.base``, single-stream only).
+(port of ``repro.policy.base``).
 
 A policy watches locally-classified frames accumulate (``observe``), is
 asked which of them to send and at which resolution (``plan``), and is
@@ -56,6 +56,17 @@ class BacklogPolicy:
 
     def _plan(self, now: float, env: Env) -> Plan:
         raise NotImplementedError
+
+    def plan_many(self, now, state, env):
+        """Batched fleet path: plan S independent backlogs at once.
+
+        Default falls back to looping ``_plan`` per stream (``state`` must
+        already be pruned — ``FleetRunner`` does this); vectorized policies
+        override.  See ``policy/fleet.py``.
+        """
+        from repro_torch.policy.fleet import looped_plan_many
+
+        return looped_plan_many(self, now, state, env)
 
     def consume(self, indices: Iterable[int]) -> int:
         drop = {int(i) for i in indices}

@@ -1,13 +1,20 @@
 """Value types of the offload decision plane (port of ``repro.policy.types``).
 
 A policy observes ``Frame``s, plans against an ``Env`` (the network and
-deadline regime at that instant) and answers with a ``Plan``.  Host numpy,
-as in the reference.  The fleet types (``EnvBatch``/``PlanBatch``) wait
-for the multi-stream slice.
+deadline regime at that instant) and answers with a ``Plan``.
+``EnvBatch`` / ``PlanBatch`` are their struct-of-arrays fleet
+counterparts: one env snapshot and one plan for S streams at once, the
+vocabulary of the batched ``plan_many`` path (``policy/fleet.py``).
+``ActionTable`` is the planner's action grid; only its frame actions
+(one per resolution) are ported: split actions wait for ``split/``
+(ROADMAP A.7).  Host numpy, as in the reference.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
 
 
 @dataclass(frozen=True)
@@ -16,6 +23,33 @@ class Frame:
     conf: float  # calibrated confidence = expected fast-tier accuracy
     sizes: tuple[float, ...]  # payload bytes per resolution (ascending res)
     fid: int = -1  # caller-side frame id; -1 = unset
+
+
+@dataclass(frozen=True)
+class ActionTable:
+    """The planner's action grid.  Frame actions occupy indices ``[0, m)``
+    with action index == resolution index; ``t_dev == 0`` and
+    ``srv_frac == 1`` for them, so the engine's ``+ t_dev`` and
+    ``* srv_frac`` are float no-ops.  Only ``frames_only`` tables exist in
+    the port (split actions: ROADMAP A.7)."""
+
+    kind: np.ndarray  # (A,) int8 — 0 = frame upload
+    res: np.ndarray  # (A,) int — evaluation resolution index
+    cut: np.ndarray  # (A,) int — catalog cut id; -1 for frame actions
+    sizes: np.ndarray  # (A,) float64 — payload bytes on the wire
+    acc: np.ndarray  # (A,) float64 — server-side accuracy if offloaded
+    t_dev: np.ndarray  # (A,) float64 — device prefix seconds (0 for frames)
+    srv_frac: np.ndarray  # (A,) float64 — fraction of server_time (1 for frames)
+
+    @classmethod
+    def frames_only(cls, *, sizes, acc) -> "ActionTable":
+        """The (m,) resolution grid."""
+        m = len(sizes)
+        return cls(kind=np.zeros(m, dtype=np.int8), res=np.arange(m),
+                   cut=np.full(m, -1, dtype=np.int64),
+                   sizes=np.asarray(sizes, dtype=np.float64),
+                   acc=np.asarray(acc, dtype=np.float64),
+                   t_dev=np.zeros(m), srv_frac=np.ones(m))
 
 
 @dataclass(frozen=True)
@@ -41,6 +75,180 @@ class Plan:
     @property
     def mean_acc(self) -> float:
         return (self.base_acc + self.total_gain) / max(self.n_frames, 1)
+
+
+@dataclass(frozen=True)
+class EnvBatch:
+    """One ``Env`` snapshot for S streams: per-stream bandwidth estimates,
+    shared link/deadline scalars, and the (m,) payload-size vector that
+    every stream's frames share (``Frame.sizes`` is per-config, not
+    per-frame).
+
+    Under an edge fabric the (S,) bandwidth vector is per-*cell* in
+    spirit: each stream's EWMA tracks its own cell's uplink (that is where
+    its transfers serialize), so ``plan_many`` automatically plans against
+    the stream's cell.  ``cell_id`` carries the partition for policies
+    that want topology awareness; ``None`` means the single-uplink world.
+
+    With a continuous-batching slow tier, ``server_time`` is already the
+    *calibrated* amortized estimate f(expected_batch)/expected_batch;
+    ``occupancy`` (the batch-occupancy EWMA behind it) and ``queue_depth``
+    (mean seconds of pending replica work) are the raw observables for
+    policies that want to reason about congestion directly.
+    """
+
+    bandwidth: np.ndarray  # (S,) uplink bytes/s, floored at 1.0
+    latency: float
+    server_time: float
+    deadline: float
+    acc_server: tuple[float, ...]
+    sizes: np.ndarray  # (m,) payload bytes per resolution
+    cell_id: Optional[np.ndarray] = None  # (S,) int cell per stream; None = one cell
+    occupancy: float = 1.0  # slow-tier batch-occupancy EWMA (1.0 = serial)
+    queue_depth: float = 0.0  # mean pending replica work (s) at plan time
+
+    @property
+    def n_streams(self) -> int:
+        return len(self.bandwidth)
+
+    @property
+    def sizes_tuple(self) -> tuple[float, ...]:
+        return tuple(float(x) for x in self.sizes)
+
+    def for_stream(self, s: int) -> Env:
+        return Env(bandwidth=float(self.bandwidth[s]), latency=self.latency,
+                   server_time=self.server_time, deadline=self.deadline,
+                   acc_server=self.acc_server)
+
+    def subset(self, streams: np.ndarray) -> "EnvBatch":
+        return EnvBatch(bandwidth=self.bandwidth[streams], latency=self.latency,
+                        server_time=self.server_time, deadline=self.deadline,
+                        acc_server=self.acc_server, sizes=self.sizes,
+                        cell_id=None if self.cell_id is None else self.cell_id[streams],
+                        occupancy=self.occupancy, queue_depth=self.queue_depth)
+
+
+@dataclass
+class PlanBatch:
+    """S ``Plan``s as struct-of-arrays: per-stream scalars plus one flat
+    (stream, backlog position, resolution) offload list sorted by
+    (stream, pos).  ``plan(s)`` materializes the per-stream ``Plan`` —
+    identical to what the looped path returns (gains/base accuracies may
+    differ from the looped floats only by summation order)."""
+
+    theta: np.ndarray  # (S,)
+    resolution: np.ndarray  # (S,) int — a° per stream (m-1 when no offloads)
+    n_offloads: np.ndarray  # (S,) int
+    total_gain: np.ndarray  # (S,)
+    base_acc: np.ndarray  # (S,)
+    n_frames: np.ndarray  # (S,) int — backlog length at plan time
+    off_stream: np.ndarray  # (E,) int
+    off_pos: np.ndarray  # (E,) int — position within the stream's backlog
+    off_res: np.ndarray  # (E,) int — action index (== resolution index for frames)
+    planned: np.ndarray = None  # (S,) bool — streams this batch planned for
+    off_kind: np.ndarray = None  # (E,) int8 — 0 = frame (from ActionTable)
+    off_cut: np.ndarray = None  # (E,) int — catalog cut id; -1 for frame actions
+
+    def __post_init__(self):
+        if self.off_kind is None:
+            self.off_kind = np.zeros(len(self.off_res), dtype=np.int8)
+        if self.off_cut is None:
+            self.off_cut = np.full(len(self.off_res), -1, dtype=np.int64)
+
+    def __len__(self) -> int:
+        return len(self.theta)
+
+    @classmethod
+    def empty(cls, n_streams: int, m: int) -> "PlanBatch":
+        z = np.zeros(n_streams)
+        zi = np.zeros(n_streams, dtype=np.int64)
+        return cls(theta=z.copy(), resolution=np.full(n_streams, m - 1, dtype=np.int64),
+                   n_offloads=zi.copy(), total_gain=z.copy(), base_acc=z.copy(),
+                   n_frames=zi.copy(), off_stream=np.zeros(0, dtype=np.int64),
+                   off_pos=np.zeros(0, dtype=np.int64), off_res=np.zeros(0, dtype=np.int64),
+                   planned=np.zeros(n_streams, dtype=bool))
+
+    @classmethod
+    def from_plans(cls, plans: list[Plan], m: int) -> "PlanBatch":
+        """Pack per-stream ``Plan``s (the looped fallback) into one batch."""
+        out = cls.empty(len(plans), m)
+        offs = []
+        for s, p in enumerate(plans):
+            out.theta[s] = p.theta
+            out.resolution[s] = p.resolution
+            out.n_offloads[s] = len(p.offloads)
+            out.total_gain[s] = p.total_gain
+            out.base_acc[s] = p.base_acc
+            out.n_frames[s] = p.n_frames
+            out.planned[s] = True
+            offs.extend((s, i, r) for i, r in p.offloads)
+        if offs:
+            a = np.asarray(offs, dtype=np.int64)
+            out.off_stream, out.off_pos, out.off_res = a[:, 0], a[:, 1], a[:, 2]
+            out.off_kind = np.zeros(len(out.off_res), dtype=np.int8)
+            out.off_cut = np.full(len(out.off_res), -1, dtype=np.int64)
+        return out
+
+    @classmethod
+    def from_offloads(cls, n_streams: int, m: int, *, off_stream, off_pos, off_res,
+                      off_conf, total_gain, base_acc, n_frames) -> "PlanBatch":
+        """Assemble from a flat offload list — the batched counterpart of
+        ``plan_from_chain``: theta is the max confidence among each stream's
+        offloads, r° that frame's resolution, ties broken toward the
+        earliest backlog position."""
+        out = cls.empty(n_streams, m)
+        out.total_gain = np.asarray(total_gain, dtype=np.float64)
+        out.base_acc = np.asarray(base_acc, dtype=np.float64)
+        out.n_frames = np.asarray(n_frames, dtype=np.int64)
+        out.planned = np.ones(n_streams, dtype=bool)
+        off_stream = np.asarray(off_stream, dtype=np.int64)
+        off_pos = np.asarray(off_pos, dtype=np.int64)
+        off_res = np.asarray(off_res, dtype=np.int64)
+        if len(off_stream) == 0:
+            return out
+        order = np.lexsort((off_pos, off_stream))
+        out.off_stream = off_stream[order]
+        out.off_pos = off_pos[order]
+        out.off_res = off_res[order]
+        out.off_kind = np.zeros(len(out.off_res), dtype=np.int8)
+        out.off_cut = np.full(len(out.off_res), -1, dtype=np.int64)
+        out.n_offloads = np.bincount(out.off_stream, minlength=n_streams)
+        conf = np.asarray(off_conf, dtype=np.float64)[order]
+        # theta/r° selection: per stream, highest conf, earliest pos on ties
+        pick = np.lexsort((out.off_pos, -conf, out.off_stream))
+        first = np.r_[True, out.off_stream[pick][1:] != out.off_stream[pick][:-1]]
+        sel = pick[first]
+        out.theta[out.off_stream[sel]] = conf[sel]
+        out.resolution[out.off_stream[sel]] = out.off_res[sel]
+        return out
+
+    def scatter(self, streams: np.ndarray, sub: "PlanBatch") -> None:
+        """Merge a group-local batch (stream ids local to ``streams``) in."""
+        for name in ("theta", "resolution", "n_offloads", "total_gain",
+                     "base_acc", "n_frames", "planned"):
+            getattr(self, name)[streams] = getattr(sub, name)
+        if len(sub.off_stream):
+            self.off_stream = np.concatenate([self.off_stream, streams[sub.off_stream]])
+            self.off_pos = np.concatenate([self.off_pos, sub.off_pos])
+            self.off_res = np.concatenate([self.off_res, sub.off_res])
+            self.off_kind = np.concatenate([self.off_kind, sub.off_kind])
+            self.off_cut = np.concatenate([self.off_cut, sub.off_cut])
+
+    def sort_offloads(self) -> None:
+        order = np.lexsort((self.off_pos, self.off_stream))
+        self.off_stream = self.off_stream[order]
+        self.off_pos = self.off_pos[order]
+        self.off_res = self.off_res[order]
+        self.off_kind = self.off_kind[order]
+        self.off_cut = self.off_cut[order]
+
+    def plan(self, s: int) -> Plan:
+        """Materialize stream ``s``'s per-stream ``Plan`` view."""
+        sel = self.off_stream == s
+        return Plan(theta=float(self.theta[s]), resolution=int(self.resolution[s]),
+                    offloads=sorted(zip(self.off_pos[sel].tolist(), self.off_res[sel].tolist())),
+                    total_gain=float(self.total_gain[s]), base_acc=float(self.base_acc[s]),
+                    n_frames=int(self.n_frames[s]))
 
 
 def plan_from_chain(chain: list[tuple[int, int]], frames, gain: float, m: int) -> Plan:

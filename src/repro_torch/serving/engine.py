@@ -12,9 +12,20 @@
   5. planned offloads leave the controller backlog, so they are never
      re-planned.
 
+``MultiStreamServer`` generalizes this to N concurrent client streams
+sharing an edge fabric (``net/``): streams are partitioned across cells
+(one serial uplink each) and escalations are placed onto a pool of
+slow-tier replicas, which may batch continuously (``slowtier/``).  Per
+round: one fast-tier call over every stream's frames, one batched
+``plan_many`` over every stream's backlog (``FleetRunner``), one
+vectorized escalation gate, one fair uplink schedule, one gathered
+slow-tier call and one fabric transmit.  Without a fabric, the ``uplink``
+argument becomes the degenerate 1-cell/1-replica fabric, the shared-uplink
+pipeline bit for bit.
+
 The tiers run on ``device`` (``cuda`` unless the caller passes ``"cpu"``);
-the planner, the uplink and the metrics stay on the host in float64.
-``MultiStreamServer`` is not ported yet.
+the planner, the uplink, the fabric and the metrics stay on the host in
+float64, as the reference's numpy engine.
 """
 from __future__ import annotations
 
@@ -24,11 +35,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.cascade import cascade_classify
-from repro_torch.core.netsim import Uplink, png_size_model
+from repro_torch.core.cascade import cascade_classify, fast_pass, slow_pass_multires
+from repro_torch.core.netsim import Uplink, png_size_model, transfer_seconds
 from repro_torch.device import resolve_device
-from repro_torch.policy import BandwidthEstimator, PolicyRunner, resolve_policies
-from repro_torch.serving.metrics import ServeMetrics
+from repro_torch.net import EdgeFabric
+from repro_torch.policy import BandwidthEstimator, FleetRunner, PolicyRunner, resolve_policies
+from repro_torch.serving.events import ArrivalSchedule, EscalationBatch, select_escalations
+from repro_torch.serving.metrics import AggregateMetrics, ServeMetrics
+from repro_torch.serving.scheduler import FairScheduler
 
 
 @dataclass
@@ -125,4 +139,202 @@ class CascadeServer:
             lat[esc] = np.where(ok, lands - arrivals[esc], cfg.deadline)
             n_correct = int((final == labels[start : start + b]).sum()) if labels is not None else 0
             self.metrics.update_batch(b, int(ok.sum()), int((~ok).sum()), n_correct, lat)
+        return self.metrics
+
+
+class MultiStreamServer:
+    """N concurrent client streams sharing an edge fabric and a slow tier.
+
+    Per round: one batched fast-tier call over all streams' frames (one
+    calib-gate launch with ``use_fused``), one batched ``plan_many`` over
+    every stream's backlog (``FleetRunner``), one vectorized escalation
+    gate, one fair uplink schedule, one gather on the device and one
+    batched slow-tier call over the cross-stream escalations, and
+    vectorized deadline/metric accounting: no per-stream or per-frame
+    Python.  ``round_hook``, when set, is called with one dict per round
+    (the reference's keys).  Only the reference's numpy round loop is
+    ported: ``backend`` other than ``"numpy"`` (ROADMAP A.9) and
+    ``telemetry`` (A.10) raise.
+    """
+
+    def __init__(self, cfg: ServeConfig, fast_forward: Callable, slow_forward: Callable,
+                 calibrate: Callable, uplink: Optional[Uplink], n_streams: int,
+                 scheduler: Optional[FairScheduler] = None, stagger: bool = True,
+                 policy="cbo", fabric: Optional[EdgeFabric] = None,
+                 backend: str = "numpy", telemetry=None, device=None):
+        if n_streams < 1:
+            raise ValueError("n_streams must be >= 1")
+        if backend != "numpy":
+            raise NotImplementedError(
+                f"backend={backend!r}: only the numpy round loop is ported (ROADMAP A.9)")
+        if telemetry is not None:
+            raise NotImplementedError("telemetry is not ported yet (ROADMAP A.10)")
+        self.device = resolve_device(device)
+        self.round_hook = None
+        self.cfg = cfg
+        self.fast_forward = fast_forward
+        self.slow_forward = slow_forward
+        self.calibrate = calibrate
+        # the fabric's cells own all traffic: passing an uplink as well
+        # would leave it idle but still feeding the metrics
+        if fabric is None:
+            if uplink is None:
+                raise ValueError("pass an uplink or an EdgeFabric")
+            fabric = EdgeFabric.degenerate(uplink, n_streams)
+        else:
+            if uplink is not None:
+                raise ValueError("pass either uplink or fabric, not both "
+                                 "(the fabric's cells own all traffic)")
+            if fabric.n_streams != n_streams:
+                raise ValueError(f"fabric maps {fabric.n_streams} streams, "
+                                 f"engine has {n_streams}")
+        self.fabric = fabric
+        self.uplink = fabric.cells[0].uplink
+        self.n_streams = n_streams
+        self.stagger = stagger
+        self.scheduler = scheduler or FairScheduler("round_robin")
+        # nominal per-stream uplink rate (each stream's own cell): the
+        # scheduler's cost normalizer and the EWMA estimators' optimistic
+        # prior (a 1/N prior can deadlock: no stream transmits, so none
+        # ever observes the link)
+        self._stream_bw = fabric.stream_bandwidth()
+        # plan against the network the fabric simulates: T^o is the pool's
+        # nominal service time
+        self.fleet = FleetRunner(
+            resolve_policies(policy, n_streams),
+            resolutions=cfg.resolutions, acc_server=cfg.acc_server,
+            deadline=cfg.deadline, latency=fabric.latency,
+            server_time=fabric.server_time, size_of=cfg.size_of,
+            bw_init=self._stream_bw, cell_id=fabric.cell_of,
+        )
+        self.metrics = AggregateMetrics.for_streams(n_streams, uplink=self.uplink,
+                                                    fabric=fabric)
+
+    @torch.inference_mode()
+    def process_streams(self, frames: np.ndarray, labels: Optional[np.ndarray] = None,
+                        schedule: Optional[ArrivalSchedule] = None) -> AggregateMetrics:
+        """Replay S frame streams; ``frames`` is (S, N, H, W, C), ``labels``
+        (S, N).  ``schedule`` defaults to the lockstep interleaved replay;
+        an ``ArrivalSchedule.churn`` staggers stream join/leave."""
+        cfg = self.cfg
+        S = self.n_streams
+        if frames.shape[0] != S:
+            raise ValueError(f"expected {S} streams, got frames.shape[0]={frames.shape[0]}")
+        B = cfg.batch_size
+        t_fast = cfg.fast_time + cfg.calib_time
+        resolutions = np.asarray(cfg.resolutions)
+        if schedule is None:
+            schedule = ArrivalSchedule.interleaved(S, frames.shape[1], cfg.frame_rate,
+                                                  cfg.deadline, stagger=self.stagger)
+        if schedule.n_streams != S or schedule.n_frames != frames.shape[1]:
+            raise ValueError("schedule shape must match frames (S, N)")
+        self.metrics.wall_time = schedule.horizon
+
+        for start, arr, valid in schedule.rounds(B):
+            b = arr.shape[1]
+            active = valid.any(axis=1)  # (S,) streams with frames this round
+            self.fleet.retire(~active)
+
+            flat = torch.as_tensor(frames[:, start : start + b].reshape(S * b, *frames.shape[2:]),
+                                   device=self.device)
+            fp, cf = fast_pass(self.fast_forward, self.calibrate, flat,
+                               use_fused=cfg.use_fused, platt_ab=cfg.platt_ab)
+            fast_preds = fp.cpu().numpy().reshape(S, b)
+            conf = cf.cpu().numpy().reshape(S, b)
+            t_ready = arr + t_fast  # (S, b); +inf on invalid slots
+
+            # control plane: one batched plan over every active backlog,
+            # against the slow tier's occupancy-calibrated service estimate
+            # (identical to the nominal when the pool does not batch)
+            now = np.min(arr, axis=1)  # first valid arrival (inf if none)
+            pool = self.fabric.pool
+            self.fleet.server_time = self.fabric.expected_server_time()
+            self.fleet.occupancy = float(pool.avg_batch)
+            fin = now[np.isfinite(now)]
+            self.fleet.queue_depth = pool.queue_depth(float(fin.min()) if len(fin) else 0.0)
+            batch = self.fleet.plan_all(now, active)
+            theta = batch.theta
+            cap = np.where(active, np.maximum(batch.n_offloads, 1), 0)
+            res_idx = batch.resolution  # action index per stream
+
+            # planner-assumed and transmitted payloads come from one table;
+            # for frame actions ``+ t_dev`` and ``* srv_frac`` are no-ops
+            act = self.fleet.action_table
+            conf_gate = np.where(valid, conf, np.inf)
+            s_idx, slot_idx = select_escalations(conf_gate, theta, cap)
+            a_esc = res_idx[s_idx]
+            esc = EscalationBatch(
+                stream=s_idx, slot=slot_idx,
+                t_ready=t_ready[s_idx, slot_idx] + act.t_dev[a_esc],
+                payload=act.sizes[a_esc],
+                res=resolutions[act.res][a_esc],
+            )
+
+            # one gather on the device, one slow-tier call for every
+            # stream's escalations
+            if len(esc):
+                gathered = flat.index_select(
+                    0, torch.as_tensor(s_idx * b + slot_idx, device=self.device))
+                slow_preds = slow_pass_multires(self.slow_forward, gathered, esc.res).cpu().numpy()
+            else:
+                slow_preds = np.zeros(0, dtype=fast_preds.dtype)
+
+            # fair uplink schedule (cost normalized by each stream's own
+            # cell rate), then one fabric transmit for the round
+            order = self.scheduler.order(esc.stream, esc.t_ready,
+                                         cost=esc.payload / self._stream_bw[esc.stream])
+            q = esc.permuted(order)
+            slow_q = slow_preds[order]
+            lands = self.fabric.transmit(q.stream, q.payload, q.t_ready,
+                                         service_scale=act.srv_frac[res_idx[q.stream]])
+            ok = lands <= arr[q.stream, q.slot] + cfg.deadline
+
+            final = fast_preds.copy()
+            final[q.stream[ok], q.slot[ok]] = slow_q[ok]
+
+            # per-stream bandwidth observations in transmission order: each
+            # reply's actual service time is subtracted, replica queueing is
+            # not (a device cannot tell it from wire time)
+            self.fleet.observe_bandwidth(
+                q.stream, q.payload,
+                transfer_seconds(lands, q.t_ready, latency=self.fabric.latency,
+                                 server_time=self.fabric.last_service_time))
+
+            # planned offloads left the device; non-escalated valid frames
+            # join their stream's backlog in slot order
+            self.fleet.consume(batch)
+            esc_mask = np.zeros((S, b), dtype=bool)
+            esc_mask[s_idx, slot_idx] = True
+            add = valid & ~esc_mask
+            add_s, _ = np.nonzero(add)
+            self.fleet.observe_frames(add_s, arr[add], conf[add].astype(np.float64))
+
+            lat = np.full((S, b), t_fast)
+            lat[q.stream[ok], q.slot[ok]] = lands[ok] - arr[q.stream[ok], q.slot[ok]]
+            lat[q.stream[~ok], q.slot[~ok]] = cfg.deadline
+            off_counts = np.bincount(q.stream[ok], minlength=S)
+            miss_counts = np.bincount(q.stream[~ok], minlength=S)
+            correct = (((final == labels[:, start : start + b]) & valid).sum(axis=1)
+                       if labels is not None else np.zeros(S, dtype=np.int64))
+            self.metrics.update_round(valid.sum(axis=1), off_counts, miss_counts,
+                                      correct, lat, valid)
+
+            if self.round_hook is not None:
+                ok_grid = np.zeros((S, b), dtype=bool)
+                ok_grid[q.stream[ok], q.slot[ok]] = True
+                self.round_hook({
+                    "start": start,
+                    "theta": theta.copy(), "res_idx": res_idx.copy(),
+                    "cap": cap.copy(), "n_off": batch.n_offloads.copy(),
+                    "n_frames": batch.n_frames.copy(),
+                    "off_stream": batch.off_stream.copy(),
+                    "off_pos": batch.off_pos.copy(),
+                    "off_res": batch.off_res.copy(),
+                    "off_kind": batch.off_kind.copy(),
+                    "off_cut": batch.off_cut.copy(),
+                    "esc": esc_mask, "ok": ok_grid, "lat": lat.copy(),
+                    "valid": valid.copy(), "correct": np.asarray(correct).copy(),
+                    "bw_est": self.fleet.bw_est.copy(),
+                    "lengths": self.fleet.state.lengths.copy(),
+                })
         return self.metrics

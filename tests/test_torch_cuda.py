@@ -9,7 +9,9 @@ another order), ``gate`` exact; attention within 2e-5 in float32 (the
 softmax summed in another order) and 3e-2 in bfloat16 (one bf16 rounding
 of the output).  Card against CPU, TF32 off: through a whole SMOKE fast
 pass ``conf`` within 1e-5, through a ``deit-smoke`` forward the logits
-within 1e-4.
+within 1e-4.  The int8 matmul is bit-equal to its plain version: the
+int32 product exactly, the float32 output bit for bit, the bfloat16 output
+after the same one rounding.
 """
 import numpy as np
 import pytest
@@ -22,6 +24,8 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused_calib_gate import kernel as cg_kernel
 from repro_torch.kernels.fused_calib_gate.ref import calib_gate_ref
+from repro_torch.kernels.int8_matmul import kernel as i8_kernel
+from repro_torch.kernels.int8_matmul import ref as i8_ref
 from repro_torch.models.resnet import ResNet
 from repro_torch.models.vit import ViT
 from repro_torch.quant.quantize import qdq_tree
@@ -184,3 +188,69 @@ def test_deit_forward_card_matches_cpu(cuda_device):
         torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# the f(batch) sweep's (32·b, 512, 512), a ragged shape, the reference
+# benchmark's, and DeiT-B's projections at 16 frames
+INT8_CASES = [(32 * b, 512, 512) for b in (1, 2, 4, 8, 16, 32)] + [
+    (37, 100, 77), (1024, 4096, 4096), (3168, 768, 2304), (3168, 768, 3072), (3168, 3072, 768)]
+
+
+def _quantized(M, K, N, seed, device):
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((M, K)).astype(np.float32), device=device)
+    w = torch.as_tensor(rng.standard_normal((K, N)).astype(np.float32), device=device)
+    return (*i8_ref.quantize_rows(x), *i8_ref.quantize_cols(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", INT8_CASES)
+def test_int8_matmul_cuda_bit_equal_to_plain_version(cuda_device, M, K, N):
+    xq, xs, wq, ws = _quantized(M, K, N, seed=M + K + N, device=cuda_device)
+    before = i8_kernel.int8_matmul.launches
+    acc = i8_kernel.int8_matmul_acc(xq, wq)
+    out32 = i8_kernel.int8_matmul(xq, xs, wq, ws, out_dtype=torch.float32)
+    out16 = i8_kernel.int8_matmul(xq, xs, wq, ws, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert i8_kernel.int8_matmul.launches == before + 3
+    assert acc.dtype == torch.int32 and out32.dtype == torch.float32 and out16.dtype == torch.bfloat16
+    assert torch.equal(acc, i8_ref.int8_acc_ref(xq, wq))
+    assert torch.equal(out32, i8_ref.int8_matmul_ref(xq, xs, wq, ws, torch.float32))
+    assert torch.equal(out16, i8_ref.int8_matmul_ref(xq, xs, wq, ws, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_int8_matmul_cuda_rejects_what_it_cannot_take(cuda_device):
+    xq, xs, wq, ws = _quantized(40, 64, 48, seed=0, device=cuda_device)
+    before = i8_kernel.int8_matmul.launches
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        i8_kernel.int8_matmul(xq.cpu(), xs.cpu(), wq.cpu(), ws.cpu())
+    with pytest.raises(TypeError):
+        i8_kernel.int8_matmul(xq.float(), xs, wq, ws)
+    with pytest.raises(TypeError):
+        i8_kernel.int8_matmul(xq, xs.double(), wq, ws)
+    with pytest.raises(ValueError, match="differ in K"):
+        i8_kernel.int8_matmul(xq, xs, wq[:32], ws)
+    with pytest.raises(ValueError, match="shape"):
+        i8_kernel.int8_matmul(xq, xs, wq, ws[:, :8])
+    with pytest.raises(ValueError, match="contiguous"):
+        i8_kernel.int8_matmul(xq, xs, wq.t().contiguous().t(), ws)
+    with pytest.raises(TypeError):
+        i8_kernel.int8_matmul(xq, xs, wq, ws, out_dtype=torch.float16)
+    assert i8_kernel.int8_matmul.launches == before
+    assert i8_kernel.int8_matmul(xq[:0], xs[:0], wq, ws).shape == (0, 48)
+    assert i8_kernel.int8_matmul.launches == before  # nothing to launch
+
+
+@pytest.mark.cuda
+def test_batch_sweep_runs_on_the_card(cuda_device):
+    from repro_torch.slowtier.sweep import BATCH_SIZES, batch_sweep
+
+    before = (i8_kernel.int8_matmul.launches, fa_kernel.flash_attention.launches)
+    out = batch_sweep(device="cuda", n_timing=1)
+    per_kernel = 2 * len(BATCH_SIZES)  # a warm-up and one timed call a batch size
+    assert i8_kernel.int8_matmul.launches == before[0] + per_kernel
+    assert fa_kernel.flash_attention.launches == before[1] + per_kernel
+    assert [r["batch"] for r in out["rows"]] == list(BATCH_SIZES)
+    assert all(r["attn_us"] > 0 and r["matmul_us"] > 0 for r in out["rows"])
+    assert out["batch_fit"]["kind"] in ("flat", "linear", "step")
