@@ -6,12 +6,13 @@
 Needs a CUDA GPU, the CUDA toolkit (``nvcc``) and this checkout's ``src/``;
 without them it exits non-zero before printing any result.  Phases:
 
-  1. card: ``nvidia-smi`` name and power limit; build the port's three
+  1. card: ``nvidia-smi`` name and power limit; build the port's four
      kernels, one ``nvcc`` per source, all started together;
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at wider, ragged and extreme ones, with times
-     (and, for attention, ``scaled_dot_product_attention``'s and, for the
-     int8 matmul, ``torch._int_mm``'s as yardsticks);
+     (and, for attention, ``scaled_dot_product_attention``'s, for the int8
+     matmul ``torch._int_mm``'s and, for the int8-KV decode, SDPA's on a
+     bf16 cache dequantized beforehand, as yardsticks);
   3. path 1: ``CascadeServer(use_fused=True)`` serving 256 synthetic
      224 px frames with two full-width ResNet-50 tiers (random weights from
      seeds; the fast tier int8 through ``qdq_tree``);
@@ -23,13 +24,18 @@ without them it exits non-zero before printing any result.  Phases:
      8 streams x 64 frames over a 2-cell, 2-replica edge fabric (ResNet-50
      FULL fast tier, one calib-gate launch per round over 128 frames;
      DeiT-B FULL slow tier, one call per round).
+     3d. path 4: StableLM-12B FULL (bf16 weights drawn on the card) with an
+     int8 KV cache and the scales folded: prefill 8 prompts of 2048 random
+     tokens, then 32 greedy decode steps, each layer's decode attention one
+     launch of the int8-KV decode kernel.
      Each path's kernel launch counts are set to 0 just before its run and
-     read just after; then the same stream runs again under
-     ``torch.profiler`` for the device's idle share;
+     read just after; then the same stream (path 4: 8 more decode steps)
+     runs again under ``torch.profiler`` for the device's idle share;
   4. one batch's fast pass on the card against the same pass on the CPU,
-     (4b) DeiT-B's logits on two frames likewise, TF32 off, and (4c) the
+     (4b) DeiT-B's logits on two frames likewise, TF32 off, (4c) the
      multi-stream engine with the synthetic tiers on the card against the
-     CPU;
+     CPU, and (4d) a 2-layer model at StableLM-12B's widths, prefill and
+     int8-fold decode, card (the kernel) against CPU (the plain version);
   5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, and the script exits non-zero.
@@ -55,6 +61,24 @@ CALIB_ATOL = 1e-6  # kernel vs plain version on the card: one float32 row sum
 ATTN_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}  # softmax summed in another order; one bf16 rounding
 CPU_CONF_ATOL = 1e-5  # card vs CPU through 53 float32 convolutions, TF32 off
 CPU_LOGIT_ATOL = 1e-4  # card vs CPU through DeiT-B's 12 float32 layers, TF32 off (logits ~2.5)
+# int8-KV decode, kernel vs plain version, (rtol, atol).  f32: 2e-5 each, the
+# softmax summed in another order, across splits.  bf16: both keep f32 and
+# round once, so they differ by at most one bf16 step of the output (2^-7 of
+# it, hence rtol 8e-3) where their f32 values straddle a rounding boundary,
+# plus f32 noise (4.5e-7 at the f32 shapes away from extreme scales) that
+# atol 1e-4 covers.  At path 4's shape the outputs are ~0.03 and the largest
+# difference seen was 2.44e-4, one step at [2^-5, 2^-4).  The phase also runs
+# the kernel on q with its two lowest mantissa bits cut, a stand-in for a
+# faulty bf16 load of q (largest error ~1e-2, median ~5e-4), and fails unless
+# this limit rejects it; rtol = atol = 1e-2 let it pass.
+DECODE_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (8e-3, 1e-4)}
+# card vs CPU through a 2-layer float32 model at StableLM-12B's widths, TF32
+# off (logits ~4): a decode step attends over int8 caches built on each
+# device, and where the two devices' f32 K/V straddle a rounding boundary an
+# entry differs by one int8 step, which moves the logits by up to ~1e-3
+CPU_LM_ATOL = 2e-3
+LM_BATCH, LM_PROMPT, LM_STEPS = 8, 2048, 32  # path 4
+LM_TRACED_STEPS = 8
 PLATT = (-20.0, 5.0)
 N_FRAMES = 256
 BATCH = 16
@@ -92,12 +116,10 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def traced(fn, iters: int = 1, host_ops: bool = True):
+def _profile(fn, iters: int, host_ops: bool):
     """Call ``fn`` ``iters`` times inside one ``torch.profiler`` (CUPTI)
-    trace.  Returns the device time the trace records, summed over every
-    kernel and copy (ms; None when it records no device activity), and the
-    host wall time of the traced window (ms).  ``host_ops=False`` traces the
-    card's activity only, which adds less host time to the window."""
+    trace; returns the trace's device events, summed by name, and the host
+    wall time of the traced window (ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -109,8 +131,17 @@ def traced(fn, iters: int = 1, host_ops: bool = True):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA], wall_ms
+
+
+def traced(fn, iters: int = 1, host_ops: bool = True):
+    """The device time one ``torch.profiler`` trace of ``iters`` calls of
+    ``fn`` records, summed over every kernel and copy (ms; None when it
+    records no device activity), and the host wall time of the traced
+    window (ms).  ``host_ops=False`` traces the card's activity only, which
+    adds less host time to the window."""
+    events, wall_ms = _profile(fn, iters, host_ops)
+    total_us = sum(e.self_device_time_total for e in events)
     return (total_us / 1e3 if total_us > 0 else None), wall_ms
 
 
@@ -525,6 +556,247 @@ def multistream_phase(fast, deit, frames, labels, counted, flash_per_call):
     return launches
 
 
+def decode_bound(B, S, KH, G, D, q_bytes):
+    """Least time (ms) for the card, and what bounds it: the int8 K and V
+    caches, both scales and q read once and the output written once, against
+    4·B·H·S·D operations (q·k and p·v) at the f32 peak outside the tensor
+    cores."""
+    n_bytes = 2 * B * S * KH * D + 2 * B * S * 4 + 2 * B * KH * G * D * q_bytes
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = 4 * B * KH * G * S * D / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kv_phase(torch, kv_kernel, decode_attention_ref):
+    """Phase 2: the int8-KV decode kernel against its plain version on the
+    card, beside ``scaled_dot_product_attention(enable_gqa=True)`` on a bf16
+    cache dequantized beforehand (what the reference's non-fold branch
+    computes; its time leaves the dequantization pass out)."""
+    import torch.nn.functional as F
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("test sweep", 1, 512, 1, 1, 64, f32), ("test sweep", 2, 1024, 4, 3, 64, f32),
+             ("test sweep", 2, 512, 8, 1, 128, f32), ("test sweep", 1, 2048, 2, 4, 64, f32),
+             ("StableLM path", LM_BATCH, LM_PROMPT, 8, 4, 160, bf16),
+             ("StableLM f32", LM_BATCH, LM_PROMPT, 8, 4, 160, f32),
+             ("Qwen-like MHA", 2, 1024, 40, 1, 128, f32), ("ragged S", LM_BATCH, 2047, 8, 4, 160, f32),
+             ("S=1", LM_BATCH, 1, 8, 4, 160, f32), ("extreme scales", 1, 256, 1, 2, 32, f32)]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
+    print("int8_kv_decode vs decode_attention_ref and SDPA on a dequantized bf16 cache (SDPA's time"
+          " excludes the dequantization); device time per call from the profiler:")
+    for name, B, S, KH, G, D, dtype in cases:
+        q = torch.randn(B, KH * G, D, generator=g, device="cuda").to(dtype)
+        kq, vq = (torch.randint(-127, 128, (B, S, KH, D), generator=g, device="cuda", dtype=torch.int8)
+                  for _ in range(2))
+        if name == "extreme scales":
+            ks, vs = torch.full((B, S), 1e-8, device="cuda"), torch.full((B, S), 10.0, device="cuda")
+        else:
+            ks, vs = (torch.rand(B, S, generator=g, device="cuda") * 0.015 + 0.005 for _ in range(2))
+        out = kv_kernel.int8_kv_decode(q, kq, ks, vq, vs)
+        ref = decode_attention_ref(q, kq, ks, vq, vs)
+        torch.cuda.synchronize()
+        tname = str(dtype).removeprefix("torch.")
+        rtol, atol = DECODE_TOL[tname]
+        check(out.dtype == dtype and out.shape == (B, KH * G, D), f"{name}: {out.dtype} {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
+        check(bool((diff <= atol + rtol * ref.float().abs()).all()),
+              f"{name} {(B, S, KH, G, D)} {tname}: err {err} beyond rtol {rtol}, atol {atol}")
+        if dtype == bf16:
+            cut = (q.view(torch.int16) & ~3).view(bf16)  # a faulty q load: 5 of 7 mantissa bits
+            fault = (kv_kernel.int8_kv_decode(cut, kq, ks, vq, vs).float() - ref.float()).abs()
+            check(not bool((fault <= atol + rtol * ref.float().abs()).all()),
+                  f"{name}: the bf16 limit passes q cut to 5 mantissa bits (err {float(fault.max())})")
+            print(f"  {name}: q cut to 5 mantissa bits gives err {float(fault.max()):.2e} (median"
+                  f" {float(fault.median()):.2e}), which the limit rejects")
+        max_err[tname] = max(max_err[tname], err)
+        qd = q.to(bf16)[:, :, None, :]  # (B, H, 1, D)
+        kd = (kq.float() * ks[:, :, None, None]).to(bf16).transpose(1, 2)  # (B, KH, S, D)
+        vd = (vq.float() * vs[:, :, None, None]).to(bf16).transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qd, kd, vd, enable_gqa=True)
+
+        sdpa_err = float((sdpa()[:, :, 0].float() - ref.float()).abs().max())
+        dev = (device_ms(lambda: kv_kernel.int8_kv_decode(q, kq, ks, vq, vs))
+               or cuda_ms(lambda: kv_kernel.int8_kv_decode(q, kq, ks, vq, vs), iters=50, warmup=5))
+        plain = (device_ms(lambda: decode_attention_ref(q, kq, ks, vq, vs))
+                 or cuda_ms(lambda: decode_attention_ref(q, kq, ks, vq, vs), iters=50, warmup=5))
+        lib = device_ms(sdpa) or cuda_ms(sdpa, iters=50, warmup=5)
+        bound_ms, bound_by = decode_bound(B, S, KH, G, D, q.element_size())
+        rows.append(dict(case=name, shape=(B, S, KH, G, D), dtype=tname, err=err, ms=dev,
+                         plain_ms=plain, library_ms=lib, bound_ms=bound_ms, bound_by=bound_by))
+        print(f"  {name:14s} {str((B, S, KH, G, D)):22s} {tname:8s} err {err:.2e} | kernel device"
+              f" {_us(dev)} | plain device {_us(plain)} | SDPA (bf16 cache) device {_us(lib)}"
+              f" (err {sdpa_err:.1e}) | bound {_us(bound_ms)} ({bound_by})")
+    print(f"  max |kernel - plain|: float32 {max_err['float32']:.3e}, bfloat16 {max_err['bfloat16']:.3e}"
+          f" ((rtol, atol) {DECODE_TOL['float32']} and {DECODE_TOL['bfloat16']})")
+    return rows, max(max_err.values())
+
+
+def traced_kernels(fn, iters: int, names, top: int = 6):
+    """Device time per call of ``fn`` (ms) under one ``torch.profiler``
+    trace of the card's activity: in all, for the kernels whose names
+    contain one of ``names``, and the ``top`` kernels by time as (name, ms)
+    pairs; None where the trace records nothing."""
+    events, _ = _profile(fn, iters, host_ops=False)
+    total = sum(e.self_device_time_total for e in events)
+    named = sum(e.self_device_time_total for e in events if any(n in e.key for n in names))
+    if total <= 0:
+        return None, None, []
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    return (total / 1e3 / iters, named / 1e3 / iters,
+            [(e.key[:60], e.self_device_time_total / 1e3 / iters) for e in ranked])
+
+
+def lm_phase(counted):
+    """Path 4: StableLM-12B FULL on the card, int8 KV cache with the scales
+    folded into the decode kernel.  Warm up once at the path's shapes; then,
+    with every launch count set to 0, prefill 8 x 2048 tokens and decode 32
+    greedy steps (ring slots pos % 2048, so each step overwrites the oldest
+    token); then 8 more steps under the profiler for the device time per
+    step, the kernel's share and the idle share."""
+    import torch
+
+    from repro_torch.configs.stablelm_12b import FULL as STABLELM
+    from repro_torch.core.confidence import sequence_confidence
+    from repro_torch.models.api import build
+    from repro_torch.models.transformer import ParallelPlan, TransformerLM, lm_decode, lm_prefill
+
+    plan = ParallelPlan(kv_cache_dtype="int8", kv_scale_fold=True)
+    t0 = time.perf_counter()
+    model = TransformerLM(STABLELM, plan, generator=torch.Generator(device="cuda").manual_seed(2),
+                          device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == build(STABLELM, plan).n_params(), f"StableLM-12B holds {n_params} parameters")
+    prompts = np.random.default_rng(2).integers(0, STABLELM.vocab_size, (LM_BATCH, LM_PROMPT))
+    tokens = torch.as_tensor(prompts, device="cuda")
+    print(f"set-up: StableLM-12B FULL bf16 weights on the card ({n_params} parameters,"
+          f" {sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB)"
+          f" {time.perf_counter() - t0:.2f} s")
+
+    def generate(n_steps, start_pos, cache, tok):
+        step_events, outs = [], []
+        for i in range(n_steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, cache = lm_decode(model, cache, tok, start_pos + i, STABLELM, plan)
+            end.record()
+            step_events.append((start, end))
+            outs.append(logits)
+            tok = logits.argmax(-1)
+        return outs, step_events, cache, tok
+
+    t0 = time.perf_counter()
+    logits, cache = lm_prefill(model, tokens, STABLELM, plan)
+    generate(2, LM_PROMPT, cache, logits.argmax(-1))
+    del cache, logits
+    torch.cuda.synchronize()
+    print(f"set-up: path 4 warm-up, one prefill and 2 decode steps at the path's shapes"
+          f" {time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    p_start, p_end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    p_start.record()
+    logits, cache = lm_prefill(model, tokens, STABLELM, plan)
+    p_end.record()
+    prefill_logits = logits
+    outs, step_events, cache, tok = generate(LM_STEPS, LM_PROMPT, cache, logits.argmax(-1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+
+    expected = STABLELM.n_layers * LM_STEPS
+    check(launches["int8_kv_decode"] == expected,
+          f"path 4: int8_kv_decode launched {launches['int8_kv_decode']} times, expected {expected}")
+    for name in ("calib_gate", "flash_attention", "int8_matmul"):
+        check(launches[name] == 0, f"path 4: {name} launched {launches[name]} times")
+    gen = torch.stack(outs, dim=1)  # (B, steps, V)
+    check(gen.shape == (LM_BATCH, LM_STEPS, STABLELM.vocab_size), f"path 4: logits {tuple(gen.shape)}")
+    check(bool(torch.isfinite(gen).all()) and bool(torch.isfinite(prefill_logits).all()),
+          "path 4: non-finite logits")
+    check(cache["k"].shape == (STABLELM.n_layers, LM_BATCH, LM_PROMPT, 8, 160)
+          and cache["k"].dtype == torch.int8, f"path 4: cache {tuple(cache['k'].shape)} {cache['k'].dtype}")
+    prefill_ms = p_start.elapsed_time(p_end)
+    step_ms = [s.elapsed_time(e) for s, e in step_events]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    conf = sequence_confidence(gen).cpu().numpy()
+    print(f"path 4, StableLM-12B FULL, int8 KV cache with folded scales, on {card_line()}:"
+          f" {LM_BATCH} prompts x {LM_PROMPT} tokens, {LM_STEPS} greedy decode steps at pos"
+          f" {LM_PROMPT}..{LM_PROMPT + LM_STEPS - 1}; launches {launches}; wall {wall:.3f} s")
+    print(f"  prefill {prefill_ms:.3f} ms (events; {LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.1f} tokens/s);"
+          f" decode per step mean {np.mean(step_ms):.3f} ms, min {np.min(step_ms):.3f} ms (events);"
+          f" decode {LM_BATCH * LM_STEPS / sum(step_ms) * 1e3:.1f} tokens/s;"
+          f" peak memory {peak_gb:.2f} GB (max_memory_allocated)")
+    print("  sequence_confidence over the 32 generated logits:", " ".join(f"{c:.4f}" for c in conf))
+
+    # more steps under the profiler: device time per step, the kernel's share
+    state = {"cache": cache, "tok": tok, "pos": LM_PROMPT + LM_STEPS}
+
+    def step():
+        logits, state["cache"] = lm_decode(model, state["cache"], state["tok"], state["pos"], STABLELM, plan)
+        state["tok"] = logits.argmax(-1)
+        state["pos"] += 1
+
+    dev_ms, kern_ms, ranked = traced_kernels(step, LM_TRACED_STEPS, ("decode_split", "decode_merge"))
+    share = "not measured" if dev_ms is None else f"{kern_ms / dev_ms:.4f}"
+    busy_ms, traced_ms = traced(step, LM_TRACED_STEPS, host_ops=False)
+    idle = "not measured" if busy_ms is None else f"{1 - busy_ms / traced_ms:.4f}"
+    print(f"  decode step device time (profiler, {LM_TRACED_STEPS} steps) {_us(dev_ms)}, of which"
+          f" int8_kv_decode {_us(kern_ms)} (share {share}); traced repeat of {LM_TRACED_STEPS} steps:"
+          f" device busy {busy_ms} ms of {traced_ms:.3f} ms wall, device idle share {idle}")
+    print("  top kernels by device time per decode step:",
+          "; ".join(f"{name} {ms * 1e3:.1f} us" for name, ms in ranked))
+    return launches
+
+
+def lm_card_vs_cpu(kv_kernel) -> float:
+    """Phase 4d: a float32 model at StableLM-12B's attention and MLP widths
+    (d 5120, 32/8 heads of 160, d_ff 13824), cut to 2 layers and vocab 4096
+    so the host copy stays small; prefill 2 x 128 tokens, then 4 decode
+    steps: the card through the kernel, the CPU through the plain version,
+    TF32 off.  Returns the largest logit difference."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.stablelm_12b import FULL as STABLELM
+    from repro_torch.models.transformer import ParallelPlan, TransformerLM, lm_decode, lm_prefill
+
+    cfg = dataclasses.replace(STABLELM, name="stablelm-12b-widths-2l", n_layers=2, vocab_size=4096)
+    plan = ParallelPlan(kv_cache_dtype="int8", kv_scale_fold=True)
+    t0 = time.perf_counter()
+    cpu = TransformerLM(cfg, plan, generator=torch.Generator().manual_seed(3), device="cpu",
+                        dtype=torch.float32)
+    card = TransformerLM(cfg, plan, device="cuda", dtype=torch.float32)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 128)))
+    lc, cache_c = lm_prefill(cpu, tokens, cfg, plan)
+    lg, cache_g = lm_prefill(card, tokens.cuda(), cfg, plan)
+    errs, same = [float((lg.cpu() - lc).abs().max())], [bool(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)))]
+    before = kv_kernel.int8_kv_decode.launches
+    for pos in range(128, 132):
+        tok = lc.argmax(-1)
+        lc, cache_c = lm_decode(cpu, cache_c, tok, pos, cfg, plan)
+        lg, cache_g = lm_decode(card, cache_g, tok.cuda(), pos, cfg, plan)
+        errs.append(float((lg.cpu() - lc).abs().max()))
+        same.append(bool(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))))
+    check(kv_kernel.int8_kv_decode.launches == before + 4 * cfg.n_layers, "phase 4d: kernel launches")
+    check(all(same), f"phase 4d: greedy tokens differ {same}")
+    check(max(errs) <= CPU_LM_ATOL, f"phase 4d: card vs CPU logit err {max(errs)} > {CPU_LM_ATOL}")
+    print(f"StableLM-12B widths, 2 layers, vocab 4096, float32, TF32 off, card vs CPU: max |logit| err"
+          f" per call (prefill, 4 decode steps) {' '.join(f'{e:.2e}' for e in errs)} (atol {CPU_LM_ATOL})"
+          f" of |logit| <= {float(lc.abs().max()):.3f}; greedy tokens equal;"
+          f" {time.perf_counter() - t0:.2f} s")
+    return max(errs)
+
+
 def warm_up(label, fast, slow, frames, n_fast=BATCH, n_slow=BATCH):
     """cuDNN and cuBLAS set up each new batch shape on its first call (0.1-0.2
     s on an H100); a server warms every batch size it can see before serving:
@@ -585,22 +857,34 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.fused_calib_gate import kernel as cg_kernel
     from repro_torch.kernels.fused_calib_gate.ref import calib_gate_ref
+    from repro_torch.kernels.int8_kv_decode import kernel as kv_kernel
+    from repro_torch.kernels.int8_kv_decode.ref import decode_attention_ref
     from repro_torch.kernels.int8_matmul import kernel as i8_kernel
     from repro_torch.kernels.int8_matmul import ref as i8_ref
     from repro_torch.models.resnet import ResNet
     from repro_torch.models.vit import ViT
     from repro_torch.quant.quantize import qdq_tree
 
+    clock = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - clock[0]:.2f} s")
+        clock[0] = now
+
     # ---- 1. card and build ------------------------------------------------ #
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
-    build_phase([cg_kernel.LIBRARY, fa_kernel.LIBRARY, i8_kernel.LIBRARY])
+    build_phase([cg_kernel.LIBRARY, fa_kernel.LIBRARY, i8_kernel.LIBRARY, kv_kernel.LIBRARY])
+    phase_done("1 (build)")
 
     # ---- 2. kernels vs plain versions ------------------------------------- #
     cg_rows, cg_err = calib_gate_phase(torch, cg_kernel.calib_gate, calib_gate_ref)
     fa_rows, fa_err = flash_phase(torch, fa_kernel.flash_attention, attention_ref)
     i8_rows, i8_err = int8_phase(torch, i8_kernel, i8_ref)
+    kv_rows, kv_err = kv_phase(torch, kv_kernel, decode_attention_ref)
+    phase_done("2 (kernels vs plain versions)")
 
     # ---- 3. path 1: ResNet-50 slow tier ----------------------------------- #
     t0 = time.perf_counter()
@@ -617,7 +901,9 @@ def main() -> int:
     serve_phase("path 1, ResNet-50 FULL fast and slow tiers", fast, slow, frames, labels,
                 {"calib_gate": (cg_kernel.calib_gate, n_batches),
                  "flash_attention": (fa_kernel.flash_attention, 0),
-                 "int8_matmul": (i8_kernel.int8_matmul, 0)})
+                 "int8_matmul": (i8_kernel.int8_matmul, 0),
+                 "int8_kv_decode": (kv_kernel.int8_kv_decode, 0)})
+    phase_done("3 (path 1)")
 
     # ---- 3b. path 2: DeiT-B slow tier ------------------------------------- #
     t0 = time.perf_counter()
@@ -629,7 +915,9 @@ def main() -> int:
                 frames, labels,
                 {"calib_gate": (cg_kernel.calib_gate, n_batches),
                  "flash_attention": (fa_kernel.flash_attention, DEIT_B.n_layers * n_batches),
-                 "int8_matmul": (i8_kernel.int8_matmul, 0)})
+                 "int8_matmul": (i8_kernel.int8_matmul, 0),
+                 "int8_kv_decode": (kv_kernel.int8_kv_decode, 0)})
+    phase_done("3b (path 2)")
 
     # ---- 3c. path 3: f(batch) sweep, multi-stream fabric ------------------ #
     t0 = time.perf_counter()
@@ -643,7 +931,17 @@ def main() -> int:
     launches = multistream_phase(fast, deit, ms_frames, ms_labels,
                                  {"calib_gate": cg_kernel.calib_gate,
                                   "flash_attention": fa_kernel.flash_attention,
-                                  "int8_matmul": i8_kernel.int8_matmul}, DEIT_B.n_layers)
+                                  "int8_matmul": i8_kernel.int8_matmul,
+                                  "int8_kv_decode": kv_kernel.int8_kv_decode}, DEIT_B.n_layers)
+    check(launches["int8_kv_decode"] == 0,
+          f"path 3 launched int8_kv_decode {launches['int8_kv_decode']} times")
+    phase_done("3c (path 3)")
+
+    # ---- 3d. path 4: StableLM-12B prefill and int8-KV decode --------------- #
+    lm_launches = lm_phase({"calib_gate": cg_kernel.calib_gate, "flash_attention": fa_kernel.flash_attention,
+                            "int8_matmul": i8_kernel.int8_matmul,
+                            "int8_kv_decode": kv_kernel.int8_kv_decode})
+    phase_done("3d (path 4)")
 
     # ---- 4. card against CPU ---------------------------------------------- #
     torch.backends.cudnn.allow_tf32 = False
@@ -679,9 +977,14 @@ def main() -> int:
     # ---- 4c. multi-stream engine card against CPU -------------------------- #
     multistream_card_vs_cpu()
 
+    # ---- 4d. StableLM-12B widths card against CPU -------------------------- #
+    lm_card_vs_cpu(kv_kernel)
+    phase_done("4 (card against CPU)")
+
     # ---- 5. result -------------------------------------------------------- #
     cg_row, fa_row = cg_rows[0], fa_rows[0]
     i8_row = max((r for r in i8_rows if r["case"].startswith("sweep")), key=lambda r: r["shape"][0])
+    kv_row = next(r for r in kv_rows if r["case"] == "StableLM path")
     kernels = [dict(name="calib_gate", route="cuda",
                     source="src/repro_torch/kernels/fused_calib_gate/csrc/calib_gate.cu",
                     replaces="src/repro/kernels/fused_calib_gate/kernel.py:48",
@@ -702,7 +1005,14 @@ def main() -> int:
                     launches=launches["int8_matmul"], max_abs_err=i8_err,
                     ms=i8_row["ms"], plain_ms=i8_row["plain_ms"],
                     bound_ms=i8_row["bound_ms"], bound_by=i8_row["bound_by"],
-                    library_ms=i8_row["library_ms"])]
+                    library_ms=i8_row["library_ms"]),
+               dict(name="int8_kv_decode", route="cuda",
+                    source="src/repro_torch/kernels/int8_kv_decode/csrc/int8_kv_decode.cu",
+                    replaces="src/repro/kernels/int8_kv_decode/kernel.py:59",
+                    launches=lm_launches["int8_kv_decode"], max_abs_err=kv_err,
+                    ms=kv_row["ms"], plain_ms=kv_row["plain_ms"],
+                    bound_ms=kv_row["bound_ms"], bound_by=kv_row["bound_by"],
+                    library_ms=kv_row["library_ms"])]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

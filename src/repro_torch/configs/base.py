@@ -1,7 +1,14 @@
-"""Model configurations (port of ``repro.configs.base``: ResNet and ViT so far)."""
+"""Model configurations (port of ``repro.configs.base``: ResNet, ViT and the
+language models so far).
+
+``LMConfig`` keeps every field of the reference's, the MoE and MLA ones
+included, so that configs read the same; the port runs the dense GQA
+family (``models/transformer.py``) and raises on MLA and MoE.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -52,3 +59,93 @@ class ViTConfig:
         pos = n_tok * d
         head = d * self.n_classes * (2 if self.distill_token else 1)
         return per_layer * self.n_layers + stem + pos + head + 2 * d
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_routed: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    dense_residual_ff: int = 0  # arctic-style parallel dense FFN (0 = off)
+    first_k_dense: int = 0  # first K layers use a dense FFN instead
+    first_dense_ff: int = 0
+    router_jitter: float = 0.0
+    aux_loss_coef: float = 0.01
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab_size: int
+    qkv_bias: bool = False
+    ffn_act: str = "swiglu"  # swiglu | gelu
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    rope_theta: float = 10_000.0
+    rope_pct: float = 1.0  # fraction of head dim rotated (stablelm: 0.25)
+    tie_embeddings: bool = False
+    # MLA (DeepSeek-V2): when set, n_kv_heads is ignored
+    use_mla: bool = False
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0  # 0 = direct q projection
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    moe: Optional[MoEConfig] = None
+    family: str = "lm"
+
+    @property
+    def param_count(self) -> int:
+        """The reference's formula (embedding + layers); it counts one
+        vector per norm, so a LayerNorm's bias is left out."""
+        return sum(int(x) for x in _lm_param_breakdown(self).values())
+
+    @property
+    def active_param_count(self) -> int:
+        """Params active per token (MoE: top_k + shared experts only)."""
+        br = _lm_param_breakdown(self)
+        total = sum(int(v) for v in br.values())
+        if self.moe is None:
+            return total
+        routed_all = br["moe_routed"]
+        return total - routed_all + routed_all * self.moe.top_k // max(self.moe.n_routed, 1)
+
+
+def _lm_param_breakdown(c: LMConfig) -> dict[str, int]:
+    """Copy of ``repro.configs.base._lm_param_breakdown``."""
+    d = c.d_model
+    emb = c.vocab_size * d * (1 if c.tie_embeddings else 2)
+    if c.use_mla:
+        qk_head = c.qk_nope_head_dim + c.qk_rope_head_dim
+        q = (d * c.q_lora_rank + c.q_lora_rank * c.n_heads * qk_head) if c.q_lora_rank else d * c.n_heads * qk_head
+        kv = d * (c.kv_lora_rank + c.qk_rope_head_dim) + c.kv_lora_rank * c.n_heads * (
+            c.qk_nope_head_dim + c.v_head_dim
+        )
+        o = c.n_heads * c.v_head_dim * d
+        attn = q + kv + o
+    else:
+        attn = d * c.n_heads * c.d_head + 2 * d * c.n_kv_heads * c.d_head + c.n_heads * c.d_head * d
+        if c.qkv_bias:
+            attn += (c.n_heads + 2 * c.n_kv_heads) * c.d_head
+    ff_mult = 3 if c.ffn_act == "swiglu" else 2
+    out: dict[str, int] = {"embedding": emb, "attention": attn * c.n_layers, "moe_routed": 0, "ffn_dense": 0}
+    if c.moe is None:
+        out["ffn_dense"] = ff_mult * d * c.d_ff * c.n_layers
+    else:
+        m = c.moe
+        n_moe_layers = c.n_layers - m.first_k_dense
+        out["moe_routed"] = ff_mult * d * m.d_ff_expert * m.n_routed * n_moe_layers
+        shared = ff_mult * d * m.d_ff_expert * m.n_shared * n_moe_layers
+        router = d * m.n_routed * n_moe_layers
+        dense_res = ff_mult * d * m.dense_residual_ff * n_moe_layers if m.dense_residual_ff else 0
+        first = ff_mult * d * (m.first_dense_ff or c.d_ff) * m.first_k_dense
+        out["ffn_dense"] = shared + router + dense_res + first
+    out["norms"] = (2 * c.n_layers + 1) * d
+    return out

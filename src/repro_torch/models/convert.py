@@ -12,9 +12,15 @@ change layout, to the ones ``F.conv2d`` and ``F.linear`` take:
 - attention ``wqkv`` ``(3, d, H, Dh)`` -> ``(3·H·Dh, d)`` and ``bqkv``
   ``(3, H, Dh)`` -> ``(3·H·Dh,)``, so the projection's output splits as
   (3, H, Dh);
-- attention ``wo`` ``(H, Dh, d)`` -> ``(d, H·Dh)``.
+- attention ``wo`` ``(H, Dh, d)`` -> ``(d, H·Dh)``;
+- the language models' ``wq``/``wk``/``wv`` ``(d, H, Dh)`` -> ``(H·Dh, d)``,
+  ``bq``/``bk``/``bv`` ``(H, Dh)`` -> ``(H·Dh,)``, SwiGLU ``wg``/``wu``
+  ``(d, d_ff)`` -> ``(d_ff, d)`` and ``wd`` ``(d_ff, d)`` -> ``(d, d_ff)``,
+  and ``unembed`` ``(d, V)`` -> ``(V, d)``.
 
-Every other leaf keeps its shape.  Values are copied exactly; bfloat16
+Every other leaf keeps its shape (``embed`` (V, d) and the norms among
+them).  A ``layers`` tree split into ``{"dense", "moe"}`` groups (an MoE
+model) raises ``NotImplementedError``: MoE is not ported yet.  Values are copied exactly; bfloat16
 leaves stay bfloat16.
 """
 from __future__ import annotations
@@ -33,8 +39,12 @@ def _to_tensor(x) -> torch.Tensor:
 def _layout(key: str, t: torch.Tensor) -> torch.Tensor:
     if key == "w" and t.ndim == 4:
         return t.permute(3, 2, 0, 1)  # HWIO -> OIHW
-    if key in ("w", "wi", "wo") and t.ndim == 2:
+    if key in ("w", "wi", "wo", "wg", "wu", "wd", "unembed") and t.ndim == 2:
         return t.t()  # (in, out) -> (out, in)
+    if key in ("wq", "wk", "wv") and t.ndim == 3:
+        return t.reshape(t.shape[0], -1).t()  # (d, H, Dh) -> (H·Dh, d)
+    if key in ("bq", "bk", "bv"):
+        return t.reshape(-1)
     if key == "wqkv":
         return t.permute(0, 2, 3, 1).reshape(-1, t.shape[1])  # (3, d, H, Dh) -> (3·H·Dh, d)
     if key == "bqkv":
@@ -58,6 +68,8 @@ def params_from_jax(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
     for key, val in tree.items():
         name = f"{prefix}{key}"
+        if key == "layers" and isinstance(val, dict) and "moe" in val:
+            raise NotImplementedError("MoE layer groups are not ported yet (ROADMAP A.12)")
         if key == "layers" and isinstance(val, dict) and set(val) == {"all"}:
             for i in range(_n_layers(val["all"])):
                 out.update(params_from_jax(_layer(val["all"], i), prefix=f"{name}.{i}."))

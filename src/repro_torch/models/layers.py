@@ -1,18 +1,23 @@
-"""Shared layers (port of part of ``repro.models.layers``).
+"""Shared layers (port of ``repro.models.layers``).
 
-Only what the ResNet and ViT call: the dense layer, LayerNorm and the
-GELU MLP.  RMSNorm, SwiGLU, RoPE and the blockwise attention come with
-the language models, and with them the reference's ``kind``/``act``
-arguments.  The attention core is ``kernels.flash_attention.ops.attention``.
+Plain functions on tensors: the dense layer, LayerNorm and RMSNorm, partial
+rotary embeddings, the GQA head expansion, the reference's plain causal
+attention (whole and blockwise), and the GELU and SwiGLU MLPs.  Weights
+are in ``F.linear``'s ``(out, in)`` layout.  The ViT's attention core is
+``kernels.flash_attention.ops.attention``; the language models' prefill
+attention is ``attention_core`` here, as in the reference, where it is
+plain einsums and no Pallas kernel.
 """
 from __future__ import annotations
 
+import math
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 F32 = torch.float32
 EPS = 1e-5
+NEG = -1e30
 
 
 class Dense(nn.Module):
@@ -27,18 +32,103 @@ class Dense(nn.Module):
         return F.linear(x, self.w, self.b)
 
 
-def apply_norm(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """LayerNorm with f32 statistics over the last axis (``layers.py:34-42``)."""
+def apply_norm(p, x: torch.Tensor, kind: str = "layernorm", eps: float = EPS) -> torch.Tensor:
+    """LayerNorm or RMSNorm with f32 statistics over the last axis
+    (``layers.py:34-42``); the result in x's dtype."""
     xf = x.to(F32)
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        return (y * p["scale"]).to(x.dtype)
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + EPS)
+    y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
-def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """The GELU MLP: ``wi`` (d_ff, d) and ``wo`` (d, d_ff) in ``F.linear``'s layout.
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, rotate_dim: int) -> torch.Tensor:
+    """x (..., S, H, Dh): rotate the first ``rotate_dim`` dims of Dh, NeoX
+    half split (``layers.py:50-64``).  Angles are float32 products, as in
+    the reference, so large positions round as they do there."""
+    if rotate_dim <= 0:
+        return x
+    half = rotate_dim // 2
+    xr, xp = x[..., :rotate_dim], x[..., rotate_dim:]
+    freqs = torch.exp(-math.log(theta) * torch.arange(half, dtype=F32, device=x.device) / half)
+    ang = positions.to(F32)[..., :, None] * freqs[None, :]  # (..., S, half)
+    cos = torch.cos(ang)[..., :, None, :]  # broadcast over heads
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = xr[..., :half].to(F32), xr[..., half:].to(F32)
+    rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([rot.to(x.dtype), xp], dim=-1)
 
-    The reference's ``jax.nn.gelu(approximate=True)`` is the tanh form."""
+
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, KH, D) -> (B, S, H, D): query head h reads KV head h // (H/KH)."""
+    kh = k.shape[2]
+    if kh == n_heads:
+        return k
+    return k.repeat_interleave(n_heads // kh, dim=2)
+
+
+def attention_core(q, k, v, *, causal: bool) -> torch.Tensor:
+    """Dense attention, q (B, Sq, H, Dh), k and v (B, Sk, H, Dh_v) -> (B, Sq, H, Dh_v)
+    (``layers.py:80-130``): scores in q's dtype scaled by 1/sqrt(Dh), then
+    softmax in f32 with masked scores at -1e30, and the probabilities cast
+    to q's dtype before P·V, as the reference does.  The causal mask lets
+    query i see keys 0..i."""
+    Sq, Dh = q.shape[1], q.shape[3]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(F32) * (1.0 / math.sqrt(Dh))
+    if causal:
+        qpos, kpos = torch.arange(Sq, device=q.device), torch.arange(k.shape[1], device=q.device)
+        scores = torch.where((qpos[:, None] >= kpos[None, :])[None, None], scores, NEG)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention_blockwise(q, k, v, *, causal: bool, chunk: int = 1024) -> torch.Tensor:
+    """Blockwise attention over KV chunks with an online softmax
+    (``layers.py:133-190``): Sk splits into ``max(Sk // chunk, 1)`` equal
+    chunks (Sk must divide, as the reference's reshape requires); m starts
+    at -inf; the output is acc / max(l, 1e-30) in q's dtype."""
+    B, Sq, H, Dh = q.shape
+    Sk = k.shape[1]
+    n_chunks = max(Sk // chunk, 1)
+    chunk = Sk // n_chunks
+    if n_chunks * chunk != Sk:
+        raise ValueError(f"attention_blockwise: {Sk} keys do not split into {n_chunks} chunks")
+    scale = 1.0 / math.sqrt(Dh)
+    qpos = torch.arange(Sq, device=q.device)
+    m = torch.full((B, H, Sq), -torch.inf, dtype=F32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=F32, device=q.device)
+    acc = torch.zeros((B, H, Sq, v.shape[-1]), dtype=F32, device=q.device)
+    for i in range(n_chunks):
+        start = i * chunk
+        kb, vb = k[:, start:start + chunk], v[:, start:start + chunk]
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kb).to(F32) * scale
+        if causal:
+            kpos = start + torch.arange(chunk, device=q.device)
+            s = torch.where((qpos[:, None] >= kpos[None, :])[None, None], s, NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb.to(F32))
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def apply_mlp(p, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
+    """The MLP (``layers.py:206-215``), weights in ``F.linear``'s layout.
+
+    ``swiglu``: ``wg``/``wu`` (d_ff, d), ``wd`` (d, d_ff); silu in f32, cast
+    back to x's dtype before the product with the up projection.
+    ``gelu``: ``wi`` (d_ff, d), ``wo`` (d, d_ff); the reference's
+    ``jax.nn.gelu(approximate=True)`` is the tanh form."""
+    if act == "swiglu":
+        g = F.linear(x, p["wg"])
+        u = F.linear(x, p["wu"])
+        return F.linear(F.silu(g.to(F32)).to(x.dtype) * u, p["wd"])
     h = F.gelu(F.linear(x, p["wi"]).to(F32), approximate="tanh").to(x.dtype)
     return F.linear(h, p["wo"])
+

@@ -11,7 +11,12 @@ of the output).  Card against CPU, TF32 off: through a whole SMOKE fast
 pass ``conf`` within 1e-5, through a ``deit-smoke`` forward the logits
 within 1e-4.  The int8 matmul is bit-equal to its plain version: the
 int32 product exactly, the float32 output bit for bit, the bfloat16 output
-after the same one rounding.
+after the same one rounding.  The int8-KV decode kernel against its plain
+version: within 2e-5 (rtol and atol) with a float32 q (the softmax summed
+in another order, across splits), 1e-2 with a bfloat16 q (one bf16
+rounding of outputs below 2 in magnitude); through a stablelm-smoke
+prefill and int8-fold decode, card against CPU, the logits within 1e-4
+and the greedy tokens equal.
 """
 import numpy as np
 import pytest
@@ -25,6 +30,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused_calib_gate import kernel as cg_kernel
 from repro_torch.kernels.fused_calib_gate.ref import calib_gate_ref
 from repro_torch.kernels.int8_matmul import kernel as i8_kernel
+from repro_torch.kernels.int8_kv_decode import kernel as kv_kernel
+from repro_torch.kernels.int8_kv_decode.ref import decode_attention_ref
 from repro_torch.kernels.int8_matmul import ref as i8_ref
 from repro_torch.models.resnet import ResNet
 from repro_torch.models.vit import ViT
@@ -254,3 +261,107 @@ def test_batch_sweep_runs_on_the_card(cuda_device):
     assert [r["batch"] for r in out["rows"]] == list(BATCH_SIZES)
     assert all(r["attn_us"] > 0 and r["matmul_us"] > 0 for r in out["rows"])
     assert out["batch_fit"]["kind"] in ("flat", "linear", "step")
+
+
+# (B, S, KH, G, D): test_kernels_decode.py's sweep; StableLM-12B's decode
+# shape; Qwen-like MHA; ragged S; the smoke configs' head dim 16; G 8 at D 256
+KV_CASES = [(1, 512, 1, 1, 64), (2, 1024, 4, 3, 64), (2, 512, 8, 1, 128), (1, 2048, 2, 4, 64),
+            (8, 2048, 8, 4, 160), (2, 1024, 40, 1, 128), (2, 2047, 8, 4, 160), (2, 1, 8, 4, 160),
+            (2, 12, 2, 2, 16), (1, 300, 2, 8, 256)]
+# (rtol, atol) against the plain version, as chip_smoke.py's DECODE_TOL: f32,
+# the softmax summed in another order; bf16, one bf16 step of the output
+# (2^-7 of it) where the two f32 results straddle a rounding, plus f32 noise
+KV_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (8e-3, 1e-4)}
+
+
+def _kv_inputs(B, S, KH, G, D, seed, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal((B, KH * G, D)).astype(np.float32),
+              rng.integers(-127, 128, (B, S, KH, D)).astype(np.int8),
+              rng.uniform(0.005, 0.02, (B, S)).astype(np.float32),
+              rng.integers(-127, 128, (B, S, KH, D)).astype(np.int8),
+              rng.uniform(0.005, 0.02, (B, S)).astype(np.float32))
+    q, kq, ks, vq, vs = (torch.as_tensor(a, device=device) for a in arrays)
+    return q.to(dtype), kq, ks, vq, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,KH,G,D", KV_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_kv_decode_cuda_matches_plain_version(cuda_device, B, S, KH, G, D, dtype):
+    args = _kv_inputs(B, S, KH, G, D, seed=S + KH * G, device=cuda_device, dtype=dtype)
+    before = kv_kernel.int8_kv_decode.launches
+    out = kv_kernel.int8_kv_decode(*args)
+    torch.cuda.synchronize()
+    assert kv_kernel.int8_kv_decode.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, KH * G, D) and torch.isfinite(out).all()
+    rtol, atol = KV_TOL[dtype]
+    torch.testing.assert_close(out.float(), decode_attention_ref(*args).float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_int8_kv_decode_cuda_extreme_scales(cuda_device):
+    q, kq, _, vq, _ = _kv_inputs(1, 256, 1, 2, 32, seed=0, device=cuda_device)
+    ks = torch.full((1, 256), 1e-8, device=cuda_device)
+    vs = torch.full((1, 256), 10.0, device=cuda_device)
+    out = kv_kernel.int8_kv_decode(q, kq, ks, vq, vs)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, decode_attention_ref(q, kq, ks, vq, vs), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_int8_kv_decode_cuda_rejects_what_it_cannot_take(cuda_device):
+    q, kq, ks, vq, vs = _kv_inputs(2, 64, 2, 2, 64, seed=0, device=cuda_device)
+    before = kv_kernel.int8_kv_decode.launches
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kv_kernel.int8_kv_decode(q.cpu(), kq.cpu(), ks.cpu(), vq.cpu(), vs.cpu())
+    with pytest.raises(TypeError):
+        kv_kernel.int8_kv_decode(q.half(), kq, ks, vq, vs)
+    with pytest.raises(TypeError):
+        kv_kernel.int8_kv_decode(q, kq.float(), ks, vq, vs)
+    with pytest.raises(TypeError):
+        kv_kernel.int8_kv_decode(q, kq, ks.bfloat16(), vq, vs)
+    with pytest.raises(ValueError, match="contiguous"):
+        kv_kernel.int8_kv_decode(q, kq.transpose(1, 2).contiguous().transpose(1, 2), ks, vq, vs)
+    with pytest.raises(ValueError, match="scales"):
+        kv_kernel.int8_kv_decode(q, kq, ks[:, :32].contiguous(), vq, vs)
+    with pytest.raises(ValueError, match="head dims"):
+        kv_kernel.int8_kv_decode(q[..., :24].contiguous(), kq[..., :24].contiguous(), ks,
+                                 vq[..., :24].contiguous(), vs)
+    with pytest.raises(ValueError, match="G <="):
+        big = _kv_inputs(1, 8, 1, 9, 64, seed=1, device=cuda_device)
+        kv_kernel.int8_kv_decode(*big)
+    assert kv_kernel.int8_kv_decode.launches == before
+
+
+@pytest.mark.cuda
+def test_stablelm_smoke_fold_decode_card_matches_cpu(cuda_device):
+    """stablelm-smoke in float32 with an int8 cache and the scale fold: the
+    card's decode goes through the kernel, the CPU's through the plain
+    version; prefill, then four decode steps past a ring wrap."""
+    from repro_torch.configs.stablelm_12b import SMOKE as LM_SMOKE
+    from repro_torch.models.transformer import ParallelPlan, TransformerLM, lm_decode, lm_prefill
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        plan = ParallelPlan(kv_cache_dtype="int8", kv_scale_fold=True)
+        cpu = TransformerLM(LM_SMOKE, plan, generator=torch.Generator().manual_seed(0), device="cpu",
+                            dtype=torch.float32)
+        card = TransformerLM(LM_SMOKE, plan, device=cuda_device, dtype=torch.float32)
+        card.load_state_dict(cpu.state_dict())
+        tokens = torch.as_tensor(np.random.default_rng(3).integers(0, LM_SMOKE.vocab_size, (2, 10)))
+        lc, cache_c = lm_prefill(cpu, tokens, LM_SMOKE, plan)
+        lg, cache_g = lm_prefill(card, tokens.to(cuda_device), LM_SMOKE, plan)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
+        before = kv_kernel.int8_kv_decode.launches
+        for pos in range(10, 14):
+            tok = lc.argmax(-1)
+            assert torch.equal(lg.argmax(-1).cpu(), tok)
+            lc, cache_c = lm_decode(cpu, cache_c, tok, pos, LM_SMOKE, plan)
+            lg, cache_g = lm_decode(card, cache_g, tok.to(cuda_device), pos, LM_SMOKE, plan)
+            torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
+        assert kv_kernel.int8_kv_decode.launches == before + 4 * LM_SMOKE.n_layers
+        assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
