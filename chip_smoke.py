@@ -7,9 +7,11 @@ Needs a CUDA GPU, the CUDA toolkit (``nvcc``) and this checkout's ``src/``;
 without them it exits non-zero before printing any result.  Phases:
 
   1. card: ``nvidia-smi`` name and power limit; build the port's four
-     kernels, one ``nvcc`` per source, all started together;
+     kernels, one ``nvcc`` per source, all started together; count the
+     tensor-core instructions of the flash-attention kernels in the SASS;
   2. each kernel against its plain PyTorch version on the card, at the
-     main paths' shapes and at wider, ragged and extreme ones, with times
+     main paths' shapes and at wider, ragged and extreme ones (bf16
+     attention and decode also against a stand-in fault), with times
      (and, for attention, ``scaled_dot_product_attention``'s, for the int8
      matmul ``torch._int_mm``'s and, for the int8-KV decode, SDPA's on a
      bf16 cache dequantized beforehand, as yardsticks);
@@ -58,7 +60,17 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
 CALIB_ATOL = 1e-6  # kernel vs plain version on the card: one float32 row sum
-ATTN_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}  # softmax summed in another order; one bf16 rounding
+# flash attention, kernel vs plain version, (rtol, atol).  f32: atol 2e-5,
+# the softmax summed in another order.  bf16: the tensor-core kernel rounds
+# P to bf16 before P.V (the plain version multiplies f32 P), at most 2^-8
+# of each term p.v of a row and of random sign, which atol 5e-3 covers (the
+# kernel's arithmetic written out in torch meets it on the CPU at these
+# shapes cut to size, tests/test_torch_flash.py); both round the output
+# once, so they may differ by one bf16 step (at most 2^-7 of it, hence rtol
+# 8e-3).  The phase
+# also runs the kernel on q cut to 5 of its 7 mantissa bits, a stand-in for
+# a faulty bf16 load, and fails unless this limit rejects it.
+ATTN_TOL = {"float32": (0.0, 2e-5), "bfloat16": (8e-3, 5e-3)}
 CPU_CONF_ATOL = 1e-5  # card vs CPU through 53 float32 convolutions, TF32 off
 CPU_LOGIT_ATOL = 1e-4  # card vs CPU through DeiT-B's 12 float32 layers, TF32 off (logits ~2.5)
 # int8-KV decode, kernel vs plain version, (rtol, atol).  f32: 2e-5 each, the
@@ -145,15 +157,20 @@ def traced(fn, iters: int = 1, host_ops: bool = True):
     return (total_us / 1e3 if total_us > 0 else None), wall_ms
 
 
-def device_ms(fn, iters: int = 20):
+def device_ms(fn, iters: int = 20, tries: int = 3):
     """Device time per call of ``fn``: the kernels' own durations, summed,
-    without the host's launch gaps; None when the profiler records none."""
+    without the host's launch gaps; None when the profiler records none in
+    ``tries`` traces (a trace now and then comes back with no device
+    events on that machine)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    total_ms, _ = traced(fn, iters)
-    return None if total_ms is None else total_ms / iters
+    for _ in range(tries):
+        total_ms, _ = traced(fn, iters)
+        if total_ms is not None:
+            return total_ms / iters
+    return None
 
 
 def _us(ms) -> str:
@@ -197,6 +214,35 @@ def build_phase(libraries) -> None:
         for line in lib.ptxas_log.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"  ptxas {lib.source.name}:", line.strip())
+
+
+def flash_sass(lib) -> dict[str, int]:
+    """Phase 1: the tensor-core (HMMA) instructions in each flash-attention
+    kernel of the built library, from ``cuobjdump -sass``: the bf16
+    kernels must have them, the f32 ones (CUDA cores) none."""
+    import os
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                                                      "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib.path)], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            d = re.search(r"ILi(\d+)E", m.group(1))
+            fn = f"{'bf16' if 'bf16_kernel' in m.group(1) else 'f32'} D={d.group(1) if d else '?'}"
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bHMMA\b", line):
+            counts[fn] += 1
+    print("  cuobjdump -sass flash_attention, HMMA instructions per kernel:",
+          ", ".join(f"{k}: {v}" for k, v in sorted(counts.items())))
+    for D in (16, 64, 128):
+        check(counts.get(f"bf16 D={D}", 0) > 0, f"bf16 flash-attention kernel D={D} has no HMMA")
+        check(counts.get(f"f32 D={D}", -1) == 0, f"f32 flash-attention kernel D={D}: {counts.get(f'f32 D={D}')}")
+    return counts
 
 
 def calib_gate_phase(torch, calib_gate, calib_gate_ref):
@@ -305,15 +351,18 @@ def int8_phase(torch, i8_kernel, i8_ref):
     return rows, max_err
 
 
-def attention_bound(B, Sq, Sk, H, D, causal, dtype):
+def attention_bound(B, Sq, Sk, H, D, causal, dtype, same_qkv=False):
     """Least time (ms) for the card, and what bounds it: q, k, v read once
-    and o written once, against 4·D operations per (query, visible key) pair
-    per head (q·k and p·v), at the f32 FMA or the bf16 tensor-core peak."""
+    (one tensor when the caller passes q as k and v, as the f(batch) sweep
+    does) and o written once, against 4·D operations per (query, visible
+    key) pair per head (q·k and p·v), at the f32 FMA or the bf16
+    tensor-core peak."""
     import torch
 
     pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
     n_ops = 4 * B * H * D * pairs
-    n_bytes = 2 * B * (Sq + Sk) * H * D * (4 if dtype == torch.float32 else 2)
+    n_elems = 2 * B * Sq * H * D + (0 if same_qkv else 2 * B * Sk * H * D)
+    n_bytes = n_elems * (4 if dtype == torch.float32 else 2)
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = n_ops / (FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -322,37 +371,60 @@ def attention_bound(B, Sq, Sk, H, D, causal, dtype):
 def flash_phase(torch, flash_attention, attention_ref):
     """Phase 2: the flash-attention kernel against its plain version and
     against ``scaled_dot_product_attention`` (the library yardstick, on the
-    (B, H, S, D) views) on the card."""
+    (B, H, S, D) views) on the card.  float32 runs the CUDA-core kernel,
+    bfloat16 the tensor-core one; the sweep's cases pass q as k and v, as
+    ``slowtier/sweep.py`` does."""
     import torch.nn.functional as F
 
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [("path K=16", 16, 198, 198, 12, 64, False, f32),
-             ("path K=3", 3, 198, 198, 12, 64, False, f32)]
+    cases = [("path K=16", 16, 198, 198, 12, 64, False, f32, False),
+             ("path K=3", 3, 198, 198, 12, 64, False, f32, False)]
     for B, S, H, D in ((1, 256, 2, 64), (2, 512, 4, 64), (2, 384, 2, 128), (1, 1024, 1, 64)):
         for causal in (True, False):
-            cases.append((f"sweep{'-causal' if causal else ''}", B, S, S, H, D, causal, f32))
-    cases += [("bf16 causal", 2, 256, 256, 2, 64, True, bf16),
-              ("sweep b=1 bf16", 1, 256, 256, 4, 64, True, bf16),
-              ("sweep b=32 bf16", 32, 256, 256, 4, 64, True, bf16),
-              ("Sq100 Sk300", 1, 100, 300, 2, 64, True, f32),
-              ("S=1", 1, 1, 1, 1, 64, False, f32)]
+            cases.append((f"sweep{'-causal' if causal else ''}", B, S, S, H, D, causal, f32, False))
+    cases += [("Sq100 Sk300", 1, 100, 300, 2, 64, True, f32, False),
+              ("S=1", 1, 1, 1, 1, 64, False, f32, False),
+              ("sweep b=1 bf16", 1, 256, 256, 4, 64, True, bf16, True),
+              ("sweep b=32 bf16", 32, 256, 256, 4, 64, True, bf16, True),
+              ("bf16 causal", 2, 256, 256, 2, 64, True, bf16, False),
+              ("bf16 K=3", 3, 198, 198, 12, 64, False, bf16, False),
+              ("bf16 D16", 1, 16, 16, 1, 16, False, bf16, False),
+              ("bf16 D16 causal", 2, 70, 70, 3, 16, True, bf16, False),
+              ("bf16 D128", 2, 384, 384, 2, 128, True, bf16, False),
+              ("bf16 D128 full", 2, 384, 384, 2, 128, False, bf16, False),
+              ("bf16 Sq100 Sk300", 1, 100, 300, 2, 64, True, bf16, False),
+              ("bf16 Sq300 Sk100", 1, 300, 100, 2, 128, True, bf16, False),
+              ("bf16 S=1", 2, 1, 1, 3, 128, True, bf16, False),
+              ("bf16 long", 1, 1024, 1024, 1, 64, True, bf16, False)]
     g = torch.Generator(device="cuda").manual_seed(1)
     rows, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
     print("flash_attention vs attention_ref and SDPA; device time per call from the profiler,"
-          " 'loop' CUDA events over 200 back-to-back calls from Python:")
-    for name, B, Sq, Sk, H, D, causal, dtype in cases:
+          " 'loop' CUDA events over 50 back-to-back calls from Python; (rtol, atol)"
+          f" {ATTN_TOL['float32']} in float32 (CUDA cores), {ATTN_TOL['bfloat16']} in bfloat16"
+          " (tensor cores):")
+    for name, B, Sq, Sk, H, D, causal, dtype, same in cases:
         q = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
-        k = torch.randn(B, Sk, H, D, generator=g, device="cuda").to(dtype)
-        v = torch.randn(B, Sk, H, D, generator=g, device="cuda").to(dtype)
+        k = q if same else torch.randn(B, Sk, H, D, generator=g, device="cuda").to(dtype)
+        v = q if same else torch.randn(B, Sk, H, D, generator=g, device="cuda").to(dtype)
         out = flash_attention(q, k, v, causal=causal)
         ref = attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         tname = str(dtype).removeprefix("torch.")
+        rtol, atol = ATTN_TOL[tname]
         check(out.dtype == dtype and out.shape == (B, Sq, H, D), f"{name}: {out.dtype} {tuple(out.shape)}")
         check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
-        err = float((out.float() - ref.float()).abs().max())
-        check(err <= ATTN_ATOL[tname], f"{name} {(B, Sq, Sk, H, D)}: err {err} > {ATTN_ATOL[tname]}")
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
+        check(bool((diff <= atol + rtol * ref.float().abs()).all()),
+              f"{name} {(B, Sq, Sk, H, D)} {tname}: err {err} beyond rtol {rtol}, atol {atol}")
         max_err[tname] = max(max_err[tname], err)
+        fault_note = ""
+        if dtype == bf16 and Sk > 1:  # with one key the output is v, whatever q is
+            cut = (q.view(torch.int16) & ~3).view(bf16)  # a faulty q load: 5 of 7 mantissa bits
+            fault = (flash_attention(cut, k, v, causal=causal).float() - ref.float()).abs()
+            check(not bool((fault <= atol + rtol * ref.float().abs()).all()),
+                  f"{name}: the bf16 limit passes q cut to 5 mantissa bits (err {float(fault.max())})")
+            fault_note = f" | q cut: err {float(fault.max()):.1e}, rejected"
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
         def sdpa():
@@ -369,15 +441,15 @@ def flash_phase(torch, flash_attention, attention_ref):
             plain_dev = cuda_ms(lambda: attention_ref(q, k, v, causal=causal), iters=50, warmup=5)
         if lib_dev is None:
             lib_dev = cuda_ms(sdpa, iters=50, warmup=5)
-        bound_ms, bound_by = attention_bound(B, Sq, Sk, H, D, causal, dtype)
+        bound_ms, bound_by = attention_bound(B, Sq, Sk, H, D, causal, dtype, same_qkv=same)
         rows.append(dict(case=name, shape=(B, Sq, Sk, H, D), causal=causal, dtype=tname, err=err,
                          ms=loop if dev is None else dev, plain_ms=plain_dev, library_ms=lib_dev,
                          bound_ms=bound_ms, bound_by=bound_by))
-        print(f"  {name:15s} {str((B, Sq, Sk, H, D)):22s} {tname:8s} err {err:.2e}"
+        print(f"  {name:16s} {str((B, Sq, Sk, H, D)):22s} {tname:8s} err {err:.2e}"
               f" | kernel device {_us(dev)} loop {_us(loop)} | plain device {_us(plain_dev)}"
-              f" | SDPA device {_us(lib_dev)} (err {sdpa_err:.1e}) | bound {_us(bound_ms)} ({bound_by})")
-    print(f"  max |kernel - plain|: float32 {max_err['float32']:.3e} (atol {ATTN_ATOL['float32']}),"
-          f" bfloat16 {max_err['bfloat16']:.3e} (atol {ATTN_ATOL['bfloat16']})")
+              f" | SDPA device {_us(lib_dev)} (err {sdpa_err:.1e}) | bound {_us(bound_ms)} ({bound_by})"
+              + fault_note)
+    print(f"  max |kernel - plain|: float32 {max_err['float32']:.3e}, bfloat16 {max_err['bfloat16']:.3e}")
     return rows, max_err["float32"]
 
 
@@ -877,6 +949,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
     build_phase([cg_kernel.LIBRARY, fa_kernel.LIBRARY, i8_kernel.LIBRARY, kv_kernel.LIBRARY])
+    flash_sass(fa_kernel.LIBRARY)
     phase_done("1 (build)")
 
     # ---- 2. kernels vs plain versions ------------------------------------- #

@@ -7,7 +7,20 @@ summed in another order; the reference sweep's own tolerance) and 3e-2
 in bfloat16 (one bf16 rounding of the output).  The CUDA kernel itself
 runs only on a GPU (``test_torch_cuda.py``); here it is shown that its
 wrapper is never faked on the CPU.
+
+The bf16 CUDA kernel runs on the tensor cores and rounds the
+probabilities to bf16 before P·V, where the reference multiplies them in
+f32.  ``_tensor_core_numerics`` writes that arithmetic out in torch (64-key
+tiles, online softmax in f32, P rounded to bf16, f32 sums) and holds it to
+the reference within the kernel's stated bf16 limit, (rtol, atol) =
+(8e-3, 5e-3): rtol covers one bf16 step of the output (at most 2^-7 of
+it) where the two f32 values straddle a rounding boundary; atol covers
+the P rounding, at most 2^-8 of each term p·v of a row, of random sign.
+The limit must also reject a stand-in fault, q cut to 5 of its 7 mantissa
+bits.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +34,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 F32_TOL = 2e-5
 BF16_TOL = 3e-2
+TC_TOL = (8e-3, 5e-3)  # (rtol, atol) of the bf16 tensor-core kernel; see the docstring
 
 
 def _qkv(B, Sq, Sk, H, D, seed):
@@ -105,3 +119,65 @@ def test_cuda_wrapper_refuses_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA kernel"):
         fa_kernel.flash_attention(q, q, q, causal=False)
     assert fa_kernel.flash_attention.launches == before
+
+
+def _tensor_core_numerics(q, k, v, causal, bk=64):
+    """The bf16 kernel's arithmetic in torch: 64-key tiles, scores and the
+    online softmax in f32 (base 2), l summed over the f32 probabilities, P
+    rounded to bf16 before P·V, the output acc / max(l, 1e-30) in q's dtype."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    qf, kf, vf = (t.to(torch.float32).transpose(1, 2) for t in (q, k, v))
+    scale_log2 = math.log2(math.e) / math.sqrt(D)
+    m = torch.full((B, H, Sq, 1), -1e30)
+    l = torch.zeros(B, H, Sq, 1)
+    acc = torch.zeros(B, H, Sq, D)
+    for k0 in range(0, Sk, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        s = (qf @ kt.transpose(-1, -2)) * scale_log2
+        if causal:
+            s = s.masked_fill(torch.arange(k0, k0 + kt.shape[2])[None, :] > torch.arange(Sq)[:, None], -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr, p = torch.exp2(m - m_new), torch.exp2(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.to(torch.bfloat16).to(torch.float32) @ vt
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).to(q.dtype)
+
+
+def _within(got, want, tol):
+    rtol, atol = tol
+    return bool(((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all())
+
+
+# chip_smoke.py's bf16 cases cut to a small size: the f(batch) sweep's
+# attention(q, q, q) at b = 1 and 2 (of 32), DeiT-B's shape at one frame,
+# head dims 16 and 128, ragged Sq != Sk both ways and S = 1
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal,same", [
+    (1, 256, 256, 4, 64, True, True),
+    (2, 256, 256, 4, 64, True, True),
+    (2, 256, 256, 2, 64, True, False),
+    (1, 198, 198, 12, 64, False, False),
+    (1, 16, 16, 1, 16, False, False),
+    (2, 70, 70, 3, 16, True, False),
+    (1, 384, 384, 2, 128, True, False),
+    (1, 100, 300, 2, 64, True, False),
+    (1, 300, 100, 2, 128, True, False),
+    (2, 1, 1, 3, 128, True, False),
+])
+def test_tensor_core_numerics_within_bf16_limit(B, Sq, Sk, H, D, causal, same):
+    q, k, v = _qkv(B, Sq, Sk, H, D, seed=Sq * 3 + Sk + D)
+    if same:
+        k = v = q
+    qb, kb, vb = (torch.as_tensor(a).to(torch.bfloat16) for a in (q, k, v))
+    got = _tensor_core_numerics(qb, kb, vb, causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, Sq, H, D)
+    assert _within(got, attention_ref(qb, kb, vb, causal=causal), TC_TOL)
+    bq, bk = (128 if Sq % 128 == 0 else Sq), (128 if Sk % 128 == 0 else Sk)
+    pallas = jax_flash_attention(*(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)), causal=causal,
+                                 bq=bq, bk=bk, interpret=True)
+    assert _within(got, torch.as_tensor(np.asarray(pallas, np.float32)), TC_TOL)
+    if Sk > 1:  # with one key the output is v, whatever q is
+        cut = (qb.view(torch.int16) & ~3).view(torch.bfloat16)
+        assert not _within(_tensor_core_numerics(cut, kb, vb, causal),
+                           attention_ref(qb, kb, vb, causal=causal), TC_TOL)
