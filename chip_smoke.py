@@ -10,8 +10,8 @@ without them it exits non-zero before printing any result.  Phases:
      kernels, one ``nvcc`` per source, all started together; count the
      tensor-core instructions of the flash-attention kernels in the SASS;
   2. each kernel against its plain PyTorch version on the card, at the
-     main paths' shapes and at wider, ragged and extreme ones (bf16
-     attention and decode also against a stand-in fault), with times
+     main paths' shapes and at wider, ragged and extreme ones (attention
+     and decode also against a stand-in fault), with times
      (and, for attention, ``scaled_dot_product_attention``'s, for the int8
      matmul ``torch._int_mm``'s and, for the int8-KV decode, SDPA's on a
      bf16 cache dequantized beforehand, as yardsticks);
@@ -57,19 +57,23 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 494.7e12  # H100 SXM dense TF32 tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
 CALIB_ATOL = 1e-6  # kernel vs plain version on the card: one float32 row sum
-# flash attention, kernel vs plain version, (rtol, atol).  f32: atol 2e-5,
-# the softmax summed in another order.  bf16: the tensor-core kernel rounds
-# P to bf16 before P.V (the plain version multiplies f32 P), at most 2^-8
-# of each term p.v of a row and of random sign, which atol 5e-3 covers (the
+# flash attention, kernel vs plain version, (rtol, atol).  f32: atol 2e-5;
+# the kernel takes three TF32 products a product (3xTF32), each within
+# ~2^-20 of f32's (the kernel's arithmetic written out in torch meets 2e-5
+# on the CPU with a sixth of it at most, tests/test_torch_flash.py), and
+# sums the softmax in another order.  bf16: the tensor-core kernel rounds P
+# to bf16 before P.V (the plain version multiplies f32 P), at most 2^-8 of
+# each term p.v of a row and of random sign, which atol 5e-3 covers (the
 # kernel's arithmetic written out in torch meets it on the CPU at these
-# shapes cut to size, tests/test_torch_flash.py); both round the output
-# once, so they may differ by one bf16 step (at most 2^-7 of it, hence rtol
-# 8e-3).  The phase
-# also runs the kernel on q cut to 5 of its 7 mantissa bits, a stand-in for
-# a faulty bf16 load, and fails unless this limit rejects it.
+# shapes cut to size); both round the output once, so they may differ by
+# one bf16 step (at most 2^-7 of it, hence rtol 8e-3).  The phase also runs
+# each kernel on a stand-in fault and fails unless this limit rejects it:
+# in bf16 q cut to 5 of its 7 mantissa bits (a faulty load), in f32 q
+# rounded to TF32 (a 1xTF32 kernel that drops q's small part).
 ATTN_TOL = {"float32": (0.0, 2e-5), "bfloat16": (8e-3, 5e-3)}
 CPU_CONF_ATOL = 1e-5  # card vs CPU through 53 float32 convolutions, TF32 off
 CPU_LOGIT_ATOL = 1e-4  # card vs CPU through DeiT-B's 12 float32 layers, TF32 off (logits ~2.5)
@@ -157,19 +161,25 @@ def traced(fn, iters: int = 1, host_ops: bool = True):
     return (total_us / 1e3 if total_us > 0 else None), wall_ms
 
 
-def device_ms(fn, iters: int = 20, tries: int = 3):
+def device_ms(fn, iters: int = 20, tries: int = 5):
     """Device time per call of ``fn``: the kernels' own durations, summed,
-    without the host's launch gaps; None when the profiler records none in
-    ``tries`` traces (a trace now and then comes back with no device
-    events on that machine)."""
+    without the host's launch gaps; None when none of ``tries`` traces is
+    whole.  On that machine a trace may lose the first kernel of its
+    window, and now and then it comes back with no device events or with
+    the kernels of many calls missing (one read SDPA's ~108 µs as 22 µs).
+    So each kernel's launches per call are its count in the trace over
+    ``iters``, rounded, at least 1 and within one launch of that; a trace
+    that fails this is not used, and each kernel counts at its mean
+    duration times its launches per call."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        total_ms, _ = traced(fn, iters)
-        if total_ms is not None:
-            return total_ms / iters
+        events, _ = _profile(fn, iters, host_ops=True)
+        per_call = [round(e.count / iters) for e in events]
+        if events and all(n >= 1 and abs(e.count - n * iters) <= 1 for e, n in zip(events, per_call)):
+            return sum(e.self_device_time_total / e.count * n for e, n in zip(events, per_call)) / 1e3
     return None
 
 
@@ -218,8 +228,8 @@ def build_phase(libraries) -> None:
 
 def flash_sass(lib) -> dict[str, int]:
     """Phase 1: the tensor-core (HMMA) instructions in each flash-attention
-    kernel of the built library, from ``cuobjdump -sass``: the bf16
-    kernels must have them, the f32 ones (CUDA cores) none."""
+    kernel of the built library, from ``cuobjdump -sass``: every kernel,
+    f32 (TF32 products) and bf16, must have them."""
     import os
     import re
     import shutil
@@ -240,8 +250,8 @@ def flash_sass(lib) -> dict[str, int]:
     print("  cuobjdump -sass flash_attention, HMMA instructions per kernel:",
           ", ".join(f"{k}: {v}" for k, v in sorted(counts.items())))
     for D in (16, 64, 128):
-        check(counts.get(f"bf16 D={D}", 0) > 0, f"bf16 flash-attention kernel D={D} has no HMMA")
-        check(counts.get(f"f32 D={D}", -1) == 0, f"f32 flash-attention kernel D={D}: {counts.get(f'f32 D={D}')}")
+        for kind in ("f32", "bf16"):
+            check(counts.get(f"{kind} D={D}", 0) > 0, f"{kind} flash-attention kernel D={D} has no HMMA")
     return counts
 
 
@@ -355,8 +365,9 @@ def attention_bound(B, Sq, Sk, H, D, causal, dtype, same_qkv=False):
     """Least time (ms) for the card, and what bounds it: q, k, v read once
     (one tensor when the caller passes q as k and v, as the f(batch) sweep
     does) and o written once, against 4·D operations per (query, visible
-    key) pair per head (q·k and p·v), at the f32 FMA or the bf16
-    tensor-core peak."""
+    key) pair per head (q·k and p·v), at the bf16 tensor-core peak or, in
+    f32, three times as many at the TF32 peak (the kernel's 3xTF32; the
+    f32 FMA peak would give the bound of a kernel on the CUDA cores)."""
     import torch
 
     pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
@@ -364,16 +375,17 @@ def attention_bound(B, Sq, Sk, H, D, causal, dtype, same_qkv=False):
     n_elems = 2 * B * Sq * H * D + (0 if same_qkv else 2 * B * Sk * H * D)
     n_bytes = n_elems * (4 if dtype == torch.float32 else 2)
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / (FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S)
+    t_ops = 3 * n_ops / TF32_OPS_PER_S if dtype == torch.float32 else n_ops / BF16_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def flash_phase(torch, flash_attention, attention_ref):
     """Phase 2: the flash-attention kernel against its plain version and
     against ``scaled_dot_product_attention`` (the library yardstick, on the
-    (B, H, S, D) views) on the card.  float32 runs the CUDA-core kernel,
-    bfloat16 the tensor-core one; the sweep's cases pass q as k and v, as
-    ``slowtier/sweep.py`` does."""
+    (B, H, S, D) views) on the card.  Both dtypes run on the tensor cores,
+    float32 in 3xTF32 products; the sweep's cases pass q as k and v, as
+    ``slowtier/sweep.py`` does.  Each case prints the atol it needs at its
+    rtol, and the error of a stand-in fault that the limit must reject."""
     import torch.nn.functional as F
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -383,6 +395,7 @@ def flash_phase(torch, flash_attention, attention_ref):
         for causal in (True, False):
             cases.append((f"sweep{'-causal' if causal else ''}", B, S, S, H, D, causal, f32, False))
     cases += [("Sq100 Sk300", 1, 100, 300, 2, 64, True, f32, False),
+              ("D16", 2, 70, 70, 3, 16, True, f32, False),
               ("S=1", 1, 1, 1, 1, 64, False, f32, False),
               ("sweep b=1 bf16", 1, 256, 256, 4, 64, True, bf16, True),
               ("sweep b=32 bf16", 32, 256, 256, 4, 64, True, bf16, True),
@@ -400,8 +413,7 @@ def flash_phase(torch, flash_attention, attention_ref):
     rows, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
     print("flash_attention vs attention_ref and SDPA; device time per call from the profiler,"
           " 'loop' CUDA events over 50 back-to-back calls from Python; (rtol, atol)"
-          f" {ATTN_TOL['float32']} in float32 (CUDA cores), {ATTN_TOL['bfloat16']} in bfloat16"
-          " (tensor cores):")
+          f" {ATTN_TOL['float32']} in float32 (3xTF32), {ATTN_TOL['bfloat16']} in bfloat16:")
     for name, B, Sq, Sk, H, D, causal, dtype, same in cases:
         q = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
         k = q if same else torch.randn(B, Sk, H, D, generator=g, device="cuda").to(dtype)
@@ -418,13 +430,17 @@ def flash_phase(torch, flash_attention, attention_ref):
         check(bool((diff <= atol + rtol * ref.float().abs()).all()),
               f"{name} {(B, Sq, Sk, H, D)} {tname}: err {err} beyond rtol {rtol}, atol {atol}")
         max_err[tname] = max(max_err[tname], err)
+        need = max(0.0, float((diff - rtol * ref.float().abs()).max()))
         fault_note = ""
-        if dtype == bf16 and Sk > 1:  # with one key the output is v, whatever q is
-            cut = (q.view(torch.int16) & ~3).view(bf16)  # a faulty q load: 5 of 7 mantissa bits
-            fault = (flash_attention(cut, k, v, causal=causal).float() - ref.float()).abs()
+        if Sk > 1:  # with one key the output is v, whatever q is
+            if dtype == bf16:  # a faulty q load: 5 of 7 mantissa bits
+                what, bad = "q cut to 5 mantissa bits", (q.view(torch.int16) & ~3).view(bf16)
+            else:  # 1xTF32 on q: q's small part dropped
+                what, bad = "q rounded to TF32", ((q.view(torch.int32) + 0x1000) & -0x2000).view(f32)
+            fault = (flash_attention(bad, k, v, causal=causal).float() - ref.float()).abs()
             check(not bool((fault <= atol + rtol * ref.float().abs()).all()),
-                  f"{name}: the bf16 limit passes q cut to 5 mantissa bits (err {float(fault.max())})")
-            fault_note = f" | q cut: err {float(fault.max()):.1e}, rejected"
+                  f"{name}: the {tname} limit passes {what} (err {float(fault.max())})")
+            fault_note = f" | {what}: err {float(fault.max()):.1e}, rejected"
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
         def sdpa():
@@ -445,7 +461,7 @@ def flash_phase(torch, flash_attention, attention_ref):
         rows.append(dict(case=name, shape=(B, Sq, Sk, H, D), causal=causal, dtype=tname, err=err,
                          ms=loop if dev is None else dev, plain_ms=plain_dev, library_ms=lib_dev,
                          bound_ms=bound_ms, bound_by=bound_by))
-        print(f"  {name:16s} {str((B, Sq, Sk, H, D)):22s} {tname:8s} err {err:.2e}"
+        print(f"  {name:16s} {str((B, Sq, Sk, H, D)):22s} {tname:8s} err {err:.2e} (atol needed {need:.2e})"
               f" | kernel device {_us(dev)} loop {_us(loop)} | plain device {_us(plain_dev)}"
               f" | SDPA device {_us(lib_dev)} (err {sdpa_err:.1e}) | bound {_us(bound_ms)} ({bound_by})"
               + fault_note)

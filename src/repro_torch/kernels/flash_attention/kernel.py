@@ -2,24 +2,27 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention/kernel.py``
 (``flash_attention``).  The source (``csrc/flash_attention.cu``) holds two
-kernels.  float32 runs on the CUDA cores; at DeiT-B's (16, 198, 12, 64) it
-is bound by operations, 4·B·H·S²·D FLOPs at the f32 FMA rate.  bfloat16
-runs on the tensor cores (``mma.sync`` m16n8k16, bf16 products with f32
-sums, K/V tiles double-buffered by ``cp.async``); at the f(batch) sweep's
-(32, 256, 4, 64) causal shape it is bound by bytes, 2.504 µs for 8.39 MB
-at 3.35 TB/s against 1.09 µs of operations at 989 TFLOP/s.  It rounds the
+kernels, both on the tensor cores with K/V tiles double-buffered by
+``cp.async``.  float32 runs ``mma.sync`` m16n8k8 in three TF32 products per
+product ("3xTF32": each operand split into a TF32 big part and a TF32
+remainder), which keeps each product within ~2^-20 of f32's; at DeiT-B's
+(16, 198, 12, 64) it needs 11.69 µs of operations at 494.7 TFLOP/s of TF32
+against 11.62 µs of bytes at 3.35 TB/s.  bfloat16 runs ``mma.sync``
+m16n8k16, bf16 products with f32 sums; at the f(batch) sweep's (32, 256, 4,
+64) causal shape it is bound by bytes, 2.504 µs for 8.39 MB at 3.35 TB/s
+against 1.09 µs of operations at 989 TFLOP/s.  It rounds the
 probabilities to bf16 before P·V, as SDPA's flash backend does; the
 reference multiplies them in f32.  The library is built by ``nvcc`` for
 ``sm_90a`` on first use (``kernels/build.py``).
 
 ``flash_attention`` takes float32 or bfloat16 CUDA tensors of head dim 64
 or 128 (the reference's) or 16 (``deit-smoke``'s) whose inner stride is 1,
-in any (B, S, H) strides; a bfloat16 tensor's data pointer and (B, S, H)
-strides must also be multiples of 16 bytes (8 elements), which the
-``cp.async`` copies need.  Views into a fused qkv projection meet that at
-these head dims.  It raises on anything else: a CUDA tensor never takes
-the plain version or the other kernel, and a CPU tensor never reaches
-here (``ops.attention`` dispatches).
+in any (B, S, H) strides; each tensor's data pointer and (B, S, H) strides
+must also be multiples of 16 bytes (4 float32 or 8 bfloat16 elements),
+which the ``cp.async`` copies need.  Views into a fused qkv projection
+meet that at these head dims.  It raises on anything else: a CUDA tensor
+never takes the plain version or the other kernel, and a CPU tensor never
+reaches here (``ops.attention`` dispatches).
 ``flash_attention.launches`` counts launches, and only launches.
 """
 from __future__ import annotations
@@ -42,7 +45,7 @@ LIBRARY = CudaLibrary(
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 128)
 BLOCK_Q = 64  # query rows per block, as in the kernel
-BF16_ALIGN = 8  # elements in the 16 bytes that a bf16 cp.async copies
+ALIGN = {torch.float32: 4, torch.bfloat16: 8}  # elements in the 16 bytes that a cp.async copies
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -67,13 +70,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, got {D}")
     if k.shape[1] < 1:
         raise ValueError("flash_attention needs at least one key")
-    if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            strides = [t.stride(i) for i in range(3) if t.shape[i] > 1]
-            if t.data_ptr() % 16 or any(st % BF16_ALIGN for st in strides):
-                raise ValueError(f"flash_attention: bfloat16 {name} must be 16-byte aligned, with (B, S, H)"
-                                 f" strides that are multiples of {BF16_ALIGN}; got strides {t.stride()[:3]}"
-                                 f" at data pointer offset {t.data_ptr() % 16} (mod 16 bytes)")
+    align = ALIGN[q.dtype]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        strides = [t.stride(i) for i in range(3) if t.shape[i] > 1]
+        if t.data_ptr() % 16 or any(st % align for st in strides):
+            raise ValueError(f"flash_attention: {name} must be 16-byte aligned, with (B, S, H) strides that"
+                             f" are multiples of {align} {str(q.dtype).removeprefix('torch.')} elements;"
+                             f" got strides {t.stride()[:3]} at data pointer offset {t.data_ptr() % 16}"
+                             " (mod 16 bytes)")
     if B * H > 2**31 - 1 or -(-Sq // BLOCK_Q) > 65535:
         raise ValueError(f"flash_attention: grid too large for shape {tuple(q.shape)}")
 

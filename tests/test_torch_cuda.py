@@ -5,11 +5,12 @@ runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Kernel against plain version: ``calib`` within 1e-6 (the row sum in
-another order), ``gate`` exact; attention within 2e-5 in float32 (the
-softmax summed in another order) and (rtol, atol) = (8e-3, 5e-3) in
+another order), ``gate`` exact; attention within 2e-5 in float32 (three
+TF32 products a product, each within ~2^-20 of f32's, and the softmax
+summed in another order) and (rtol, atol) = (8e-3, 5e-3) in
 bfloat16: the tensor-core kernel rounds P to bf16 before P·V (at most
 2^-8 of each term, atol) and both round the output once (one bf16 step,
-at most 2^-7 of it, rtol); ``tests/test_torch_flash.py`` holds that
+at most 2^-7 of it, rtol); ``tests/test_torch_flash.py`` holds both kernels'
 arithmetic to the reference on the CPU.  Card against CPU, TF32 off: through a whole SMOKE fast
 pass ``conf`` within 1e-5, through a ``deit-smoke`` forward the logits
 within 1e-4.  The int8 matmul is bit-equal to its plain version: the
@@ -120,7 +121,8 @@ def _qkv(B, Sq, Sk, H, D, seed, device, dtype=torch.float32):
                                  device=device).to(dtype) for S in (Sq, Sk, Sk))
 
 
-# the path's shapes, the reference sweep's, ragged Sq != Sk and S = 1
+# the path's shapes, the reference sweep's, ragged Sq != Sk and S = 1, a
+# last key tile of 6 at D = 16 and 128 (whose key tiles are 32 long)
 FLASH_CASES = [(16, 198, 198, 12, 64, False), (3, 198, 198, 12, 64, False),
                (1, 256, 256, 2, 64, True), (1, 256, 256, 2, 64, False),
                (2, 512, 512, 4, 64, True), (2, 512, 512, 4, 64, False),
@@ -128,7 +130,8 @@ FLASH_CASES = [(16, 198, 198, 12, 64, False), (3, 198, 198, 12, 64, False),
                (1, 1024, 1024, 1, 64, True), (1, 1024, 1024, 1, 64, False),
                (1, 100, 300, 2, 64, True), (1, 300, 100, 2, 128, True),
                (1, 1, 1, 1, 64, False), (2, 1, 1, 3, 128, True),
-               (5, 18, 18, 4, 16, False), (2, 70, 70, 3, 16, True)]  # deit-smoke's head dim
+               (5, 18, 18, 4, 16, False), (2, 70, 70, 3, 16, True),  # deit-smoke's head dim
+               (2, 198, 198, 3, 16, False), (2, 198, 198, 3, 128, False), (1, 100, 300, 2, 128, True)]
 
 
 @pytest.mark.cuda
@@ -202,8 +205,16 @@ def test_flash_attention_cuda_rejects_what_it_cannot_take(cuda_device):
         fa_kernel.flash_attention(q, k[:, :, :1], v, causal=False)
     with pytest.raises(ValueError, match="CUDA kernel"):
         fa_kernel.flash_attention(q, k.cpu(), v, causal=False)
-    # bf16 goes through 16-byte cp.async copies: a sequence stride of 65
-    # elements, or a data pointer 2 bytes off, raises rather than launching
+    # both dtypes go through 16-byte cp.async copies: a stride of 65
+    # elements, or a data pointer one element off, raises rather than launching
+    _, k1, v1 = _qkv(1, 16, 16, 1, 64, seed=0, device=cuda_device)
+    odd_seq = torch.zeros(1, 16, 1, 65, device=cuda_device)[..., :64]
+    assert odd_seq.stride(1) == 65
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa_kernel.flash_attention(odd_seq, k1, v1, causal=False)
+    shifted32 = torch.zeros(1 * 16 * 2 * 64 + 1, device=cuda_device)[1:].view(1, 16, 2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa_kernel.flash_attention(q, shifted32, v, causal=False)
     qb, kb, vb = (t.bfloat16() for t in (q, k, v))
     odd = torch.zeros(1, 16, 2, 65, dtype=torch.bfloat16, device=cuda_device)[..., :64]
     with pytest.raises(ValueError, match="16-byte aligned"):

@@ -18,6 +18,18 @@ it) where the two f32 values straddle a rounding boundary; atol covers
 the P rounding, at most 2^-8 of each term p·v of a row, of random sign.
 The limit must also reject a stand-in fault, q cut to 5 of its 7 mantissa
 bits.
+
+The f32 CUDA kernel runs on the tensor cores in three TF32 products per
+product (3xTF32).  ``_tf32x3_numerics`` writes that arithmetic out in
+torch: each operand x split into big = x rounded to TF32 (10 mantissa
+bits, to nearest with ties away from zero, as ``cvt.rna.tf32.f32``) and
+small = x - big cut to TF32 (the tensor cores read a register's upper 19
+bits), small·big' + big·small' summed before big·big', small·small'
+dropped; key tiles of 32, the online softmax in base 2, P split like any
+operand.  It holds that arithmetic to the reference within the f32 limit,
+(rtol, atol) = (0, 2e-5), and shows that the limit rejects a 1xTF32
+stand-in fault: q rounded to TF32, what a kernel that dropped q's small
+part would compute.
 """
 import math
 
@@ -181,3 +193,85 @@ def test_tensor_core_numerics_within_bf16_limit(B, Sq, Sk, H, D, causal, same):
         cut = (qb.view(torch.int16) & ~3).view(torch.bfloat16)
         assert not _within(_tensor_core_numerics(cut, kb, vb, causal),
                            attention_ref(qb, kb, vb, causal=causal), TC_TOL)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, on the f32 bits: the value ``cvt.rna.tf32.f32`` leaves in a
+    register's upper 19 bits."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    big = _tf32(x)
+    return big, ((x - big).view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b in three TF32 products, the cross terms first."""
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def _tf32x3_numerics(q, k, v, causal):
+    """The f32 kernel's arithmetic in torch: key tiles of 32, scores as
+    3xTF32 products of q and k, the online softmax in f32 base 2
+    with l summed over the f32 probabilities, P·V as 3xTF32 products, the
+    output acc / max(l, 1e-30)."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    bk = 32
+    qf, kf, vf = (t.transpose(1, 2) for t in (q, k, v))
+    scale_log2 = math.log2(math.e) / math.sqrt(D)
+    m = torch.full((B, H, Sq, 1), -1e30)
+    l = torch.zeros(B, H, Sq, 1)
+    acc = torch.zeros(B, H, Sq, D)
+    for k0 in range(0, Sk, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        s = _mm_3xtf32(qf, kt.transpose(-1, -2))
+        if causal:
+            s = s.masked_fill(torch.arange(k0, k0 + kt.shape[2])[None, :] > torch.arange(Sq)[:, None], -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr, p = torch.exp2((m - m_new) * scale_log2), torch.exp2(s * scale_log2 - m_new * scale_log2)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _mm_3xtf32(p, vt)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2)
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    one_ulp = 2.0 ** -10
+    x = torch.tensor([1 + one_ulp / 2, 1 + one_ulp / 2 - 2 ** -23, -(1 + one_ulp / 2), 1 + 3 * one_ulp / 2, 3.0])
+    assert _tf32(x).tolist() == [1 + one_ulp, 1.0, -(1 + one_ulp), 1 + 2 * one_ulp, 3.0]
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(1000).astype(np.float32))
+    big, small = _split(x)
+    assert torch.equal(_tf32(big), big) and torch.equal(_tf32(small), small)
+    assert bool(((big + small - x).abs() <= x.abs() * 2.0 ** -21).all())
+
+
+# tests/test_torch_cuda.py's f32 cases cut to size: DeiT-B's shape at one
+# frame, the reference sweep's shapes causal and not, head dims 16 and 128
+# (a last key tile of 6), ragged Sq != Sk both ways and S = 1
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal", [
+    (1, 198, 198, 12, 64, False),
+    (1, 256, 256, 2, 64, True), (1, 256, 256, 2, 64, False),
+    (1, 512, 512, 2, 64, True), (1, 512, 512, 2, 64, False),
+    (1, 384, 384, 2, 128, True), (1, 384, 384, 2, 128, False),
+    (1, 1024, 1024, 1, 64, True), (1, 1024, 1024, 1, 64, False),
+    (5, 18, 18, 4, 16, False), (2, 70, 70, 3, 16, True), (1, 198, 198, 3, 16, False),
+    (1, 198, 198, 3, 128, False),
+    (1, 100, 300, 2, 64, True), (1, 300, 100, 2, 128, True), (1, 100, 300, 2, 128, True),
+    (1, 1, 1, 1, 64, False), (2, 1, 1, 3, 128, True),
+])
+def test_tf32x3_numerics_within_f32_limit(B, Sq, Sk, H, D, causal):
+    q, k, v = (torch.as_tensor(a) for a in _qkv(B, Sq, Sk, H, D, seed=Sq * 7 + Sk + D))
+    got = _tf32x3_numerics(q, k, v, causal)
+    assert got.dtype == torch.float32 and got.shape == (B, Sq, H, D)
+    want = attention_ref(q, k, v, causal=causal)
+    assert _within(got, want, (0.0, F32_TOL))
+    bq, bk = (128 if Sq % 128 == 0 else Sq), (128 if Sk % 128 == 0 else Sk)
+    pallas = jax_flash_attention(*(jnp.asarray(a.numpy()) for a in (q, k, v)), causal=causal,
+                                 bq=bq, bk=bk, interpret=True)
+    assert _within(got, torch.as_tensor(np.asarray(pallas)), (0.0, F32_TOL))
+    if Sk > 1:  # with one key the output is v, whatever q is
+        assert not _within(_tf32x3_numerics(_tf32(q), k, v, causal), want, (0.0, F32_TOL))
