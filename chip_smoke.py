@@ -8,7 +8,10 @@ without them it exits non-zero before printing any result.  Phases:
 
   1. card: ``nvidia-smi`` name and power limit; build the port's four
      kernels, one ``nvcc`` per source, all started together; count the
-     tensor-core instructions of the flash-attention kernels in the SASS;
+     tensor-core instructions of the flash-attention kernels in the SASS,
+     and the int8-KV decode kernel's I2F (none allowed), PRMT and HMMA;
+     print the decode kernel's launch plan (blocks a SM, cp.async stages,
+     bytes in flight);
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at wider, ragged and extreme ones (attention
      and decode also against a stand-in fault), with times
@@ -94,6 +97,14 @@ DECODE_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (8e-3, 1e-4)}
 # entry differs by one int8 step, which moves the logits by up to ~1e-3
 CPU_LM_ATOL = 2e-3
 LM_BATCH, LM_PROMPT, LM_STEPS = 8, 2048, 32  # path 4
+# int8-KV decode against its plain version: (name, B, S, KH, G, D, q's dtype)
+KV_CASES = [("test sweep", 1, 512, 1, 1, 64, "float32"), ("test sweep", 2, 1024, 4, 3, 64, "float32"),
+            ("test sweep", 2, 512, 8, 1, 128, "float32"), ("test sweep", 1, 2048, 2, 4, 64, "float32"),
+            ("StableLM path", LM_BATCH, LM_PROMPT, 8, 4, 160, "bfloat16"),
+            ("StableLM f32", LM_BATCH, LM_PROMPT, 8, 4, 160, "float32"),
+            ("Qwen-like MHA", 2, 1024, 40, 1, 128, "float32"),
+            ("ragged S", LM_BATCH, 2047, 8, 4, 160, "float32"), ("S=1", LM_BATCH, 1, 8, 4, 160, "float32"),
+            ("extreme scales", 1, 256, 1, 2, 32, "float32"), ("Arctic G=7", 2, 1000, 8, 7, 128, "bfloat16")]
 LM_TRACED_STEPS = 8
 PLATT = (-20.0, 5.0)
 N_FRAMES = 256
@@ -226,10 +237,9 @@ def build_phase(libraries) -> None:
                 print(f"  ptxas {lib.source.name}:", line.strip())
 
 
-def flash_sass(lib) -> dict[str, int]:
-    """Phase 1: the tensor-core (HMMA) instructions in each flash-attention
-    kernel of the built library, from ``cuobjdump -sass``: every kernel,
-    f32 (TF32 products) and bf16, must have them."""
+def sass_counts(lib, ops) -> dict[str, dict[str, int]]:
+    """Phase 1: the instructions named in ``ops`` in each kernel of a built
+    library, counted in ``cuobjdump -sass``, by mangled function name."""
     import os
     import re
     import shutil
@@ -242,16 +252,67 @@ def flash_sass(lib) -> dict[str, int]:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            d = re.search(r"ILi(\d+)E", m.group(1))
-            fn = f"{'bf16' if 'bf16_kernel' in m.group(1) else 'f32'} D={d.group(1) if d else '?'}"
-            counts[fn] = 0
-        elif fn is not None and re.search(r"\bHMMA\b", line):
-            counts[fn] += 1
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            for op in ops:
+                if re.search(rf"\b{op}\b", line):
+                    counts[fn][op] += 1
+    return counts
+
+
+def flash_sass(lib) -> dict[str, int]:
+    """Phase 1: the tensor-core (HMMA) instructions in each flash-attention
+    kernel of the built library: every kernel, f32 (TF32 products) and
+    bf16, must have them."""
+    import re
+
+    counts = {}
+    for fn, c in sass_counts(lib, ("HMMA",)).items():
+        d = re.search(r"ILi(\d+)E", fn)
+        counts[f"{'bf16' if 'bf16_kernel' in fn else 'f32'} D={d.group(1) if d else '?'}"] = c["HMMA"]
     print("  cuobjdump -sass flash_attention, HMMA instructions per kernel:",
           ", ".join(f"{k}: {v}" for k, v in sorted(counts.items())))
     for D in (16, 64, 128):
         for kind in ("f32", "bf16"):
             check(counts.get(f"{kind} D={D}", 0) > 0, f"{kind} flash-attention kernel D={D} has no HMMA")
+    return counts
+
+
+def kv_sass(kv_kernel) -> dict[str, dict[str, int]]:
+    """Phase 1: the int8-KV decode kernel widens int8 by PRMT and f16x2
+    subtractions, never by I2F, and multiplies on the tensor cores: count
+    I2F (and sm_90's I2FP), PRMT and HMMA per instantiation (q's dtype,
+    head dims up to 64 / 128 / 160 / 256), fail on any I2F and on an
+    instantiation without PRMT or HMMA.  Then the launch plan at path 4's
+    shape: blocks a SM, shared memory, the cp.async ring, and the K/V bytes
+    in flight a SM while each block computes a tile."""
+    import re
+
+    import torch
+
+    counts = {}
+    for fn, c in sass_counts(kv_kernel.LIBRARY, ("I2F", "I2FP", "PRMT", "HMMA")).items():
+        mb = re.search(r"ILi(\d+)E", fn)
+        counts[f"{'bf16' if 'bfloat16' in fn else 'f32'} D<={16 * int(mb.group(1)) if mb else '?'}"] = c
+    print("  cuobjdump -sass int8_kv_decode, per instantiation:",
+          "; ".join(f"{k}: " + " ".join(f"{op} {n}" for op, n in v.items())
+                    for k, v in sorted(counts.items())))
+    check(len(counts) == 8, f"int8_kv_decode: {len(counts)} kernel instantiations, expected 8")
+    for name, c in counts.items():
+        check(c["I2F"] + c["I2FP"] == 0, f"int8_kv_decode {name} converts on I2F: {c}")
+        check(c["PRMT"] > 0 and c["HMMA"] > 0,
+              f"int8_kv_decode {name} lacks PRMT or HMMA, so it is not the designed kernel: {c}")
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = kv_kernel.launch_plan(0, dtype, 160)
+        n_splits, per = kv_kernel.split_plan(LM_BATCH * 8, LM_PROMPT, n_sms, plan.blocks_per_sm)
+        print(f"  int8_kv_decode plan at (8, 2048, 8, 4, 160) {str(dtype).removeprefix('torch.')}:"
+              f" {plan.blocks_per_sm} blocks of 128 threads a SM, {plan.smem_bytes} B shared memory"
+              f" a block, {plan.stages} stages of {plan.tile} tokens ({plan.tile_bytes} B of K and V),"
+              f" {plan.blocks_per_sm * (plan.stages - 1) * plan.tile_bytes} B in flight a SM while"
+              f" each block computes; {n_splits} splits of {per} tiles,"
+              f" {LM_BATCH * 8 * n_splits} blocks on {n_sms} SMs")
     return counts
 
 
@@ -662,13 +723,8 @@ def kv_phase(torch, kv_kernel, decode_attention_ref):
     computes; its time leaves the dequantization pass out)."""
     import torch.nn.functional as F
 
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = [("test sweep", 1, 512, 1, 1, 64, f32), ("test sweep", 2, 1024, 4, 3, 64, f32),
-             ("test sweep", 2, 512, 8, 1, 128, f32), ("test sweep", 1, 2048, 2, 4, 64, f32),
-             ("StableLM path", LM_BATCH, LM_PROMPT, 8, 4, 160, bf16),
-             ("StableLM f32", LM_BATCH, LM_PROMPT, 8, 4, 160, f32),
-             ("Qwen-like MHA", 2, 1024, 40, 1, 128, f32), ("ragged S", LM_BATCH, 2047, 8, 4, 160, f32),
-             ("S=1", LM_BATCH, 1, 8, 4, 160, f32), ("extreme scales", 1, 256, 1, 2, 32, f32)]
+    cases = [(name, B, S, KH, G, D, getattr(torch, dtype)) for name, B, S, KH, G, D, dtype in KV_CASES]
+    bf16 = torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(4)
     rows, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
     print("int8_kv_decode vs decode_attention_ref and SDPA on a dequantized bf16 cache (SDPA's time"
@@ -708,6 +764,15 @@ def kv_phase(torch, kv_kernel, decode_attention_ref):
             return F.scaled_dot_product_attention(qd, kd, vd, enable_gqa=True)
 
         sdpa_err = float((sdpa()[:, :, 0].float() - ref.float()).abs().max())
+        if name == "StableLM path":  # one kernel a call: the splits merge in the launch
+            iters = 10
+            events, _ = _profile(lambda: kv_kernel.int8_kv_decode(q, kq, ks, vq, vs), iters, host_ops=False)
+            keys = [e.key for e in events]
+            # a trace may lose some calls' kernels, never add one
+            check(len(events) == 1 and "int8_kv_decode_kernel" in keys[0] and events[0].count <= iters,
+                  f"{name}: the profiler shows {[(e.key[:60], e.count) for e in events]} for {iters} calls")
+            print(f"  {name}: the profiler shows one kernel, {keys[0][:60]}, {events[0].count} launches"
+                  f" in a trace of {iters} calls")
         dev = (device_ms(lambda: kv_kernel.int8_kv_decode(q, kq, ks, vq, vs))
                or cuda_ms(lambda: kv_kernel.int8_kv_decode(q, kq, ks, vq, vs), iters=50, warmup=5))
         plain = (device_ms(lambda: decode_attention_ref(q, kq, ks, vq, vs))
@@ -739,13 +804,14 @@ def traced_kernels(fn, iters: int, names, top: int = 6):
             [(e.key[:60], e.self_device_time_total / 1e3 / iters) for e in ranked])
 
 
-def lm_phase(counted):
+def lm_phase(counted, kernel_names=("int8_kv_decode_kernel",)):
     """Path 4: StableLM-12B FULL on the card, int8 KV cache with the scales
     folded into the decode kernel.  Warm up once at the path's shapes; then,
     with every launch count set to 0, prefill 8 x 2048 tokens and decode 32
     greedy steps (ring slots pos % 2048, so each step overwrites the oldest
     token); then 8 more steps under the profiler for the device time per
-    step, the kernel's share and the idle share."""
+    step, the share of the kernels whose names hold one of ``kernel_names``
+    and the idle share."""
     import torch
 
     from repro_torch.configs.stablelm_12b import FULL as STABLELM
@@ -832,7 +898,7 @@ def lm_phase(counted):
         state["tok"] = logits.argmax(-1)
         state["pos"] += 1
 
-    dev_ms, kern_ms, ranked = traced_kernels(step, LM_TRACED_STEPS, ("decode_split", "decode_merge"))
+    dev_ms, kern_ms, ranked = traced_kernels(step, LM_TRACED_STEPS, kernel_names)
     share = "not measured" if dev_ms is None else f"{kern_ms / dev_ms:.4f}"
     busy_ms, traced_ms = traced(step, LM_TRACED_STEPS, host_ops=False)
     idle = "not measured" if busy_ms is None else f"{1 - busy_ms / traced_ms:.4f}"
@@ -966,6 +1032,7 @@ def main() -> int:
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
     build_phase([cg_kernel.LIBRARY, fa_kernel.LIBRARY, i8_kernel.LIBRARY, kv_kernel.LIBRARY])
     flash_sass(fa_kernel.LIBRARY)
+    kv_sass(kv_kernel)
     phase_done("1 (build)")
 
     # ---- 2. kernels vs plain versions ------------------------------------- #

@@ -17,8 +17,10 @@ within 1e-4.  The int8 matmul is bit-equal to its plain version: the
 int32 product exactly, the float32 output bit for bit, the bfloat16 output
 after the same one rounding.  The int8-KV decode kernel against its plain
 version: within 2e-5 (rtol and atol) with a float32 q (the softmax summed
-in another order, across splits), 1e-2 with a bfloat16 q (one bf16
-rounding of outputs below 2 in magnitude); through a stablelm-smoke
+in another order, across splits), (rtol, atol) = (8e-3, 1e-4) with a
+bfloat16 q (one bf16 step of the output where the two f32 results straddle
+a rounding); bit for bit from call to call and under CUDA-graph replay;
+through a stablelm-smoke
 prefill and int8-fold decode, card against CPU, the logits within 1e-4
 and the greedy tokens equal.
 """
@@ -310,10 +312,12 @@ def test_batch_sweep_runs_on_the_card(cuda_device):
 
 
 # (B, S, KH, G, D): test_kernels_decode.py's sweep; StableLM-12B's decode
-# shape; Qwen-like MHA; ragged S; the smoke configs' head dim 16; G 8 at D 256
+# shape; Qwen-like MHA; ragged S; the smoke configs' head dim 16; G 8 at D 256;
+# G 7 (Arctic's 56 query heads over 8), 5 and 6, which run the G = 8 code
 KV_CASES = [(1, 512, 1, 1, 64), (2, 1024, 4, 3, 64), (2, 512, 8, 1, 128), (1, 2048, 2, 4, 64),
             (8, 2048, 8, 4, 160), (2, 1024, 40, 1, 128), (2, 2047, 8, 4, 160), (2, 1, 8, 4, 160),
-            (2, 12, 2, 2, 16), (1, 300, 2, 8, 256)]
+            (2, 12, 2, 2, 16), (1, 300, 2, 8, 256), (2, 1000, 8, 7, 128), (1, 777, 2, 5, 64),
+            (2, 333, 1, 6, 32)]
 # (rtol, atol) against the plain version, as chip_smoke.py's DECODE_TOL: f32,
 # the softmax summed in another order; bf16, one bf16 step of the output
 # (2^-7 of it) where the two f32 results straddle a rounding, plus f32 noise
@@ -353,6 +357,40 @@ def test_int8_kv_decode_cuda_extreme_scales(cuda_device):
     out = kv_kernel.int8_kv_decode(q, kq, ks, vq, vs)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, decode_attention_ref(q, kq, ks, vq, vs), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_int8_kv_decode_cuda_graph_replay(cuda_device):
+    """At path 4's shape (split S, merged in the launch): one warm-up call,
+    one call captured in a CUDA graph, then new q values copied in and the
+    graph replayed, twice; each replay matches an eager call bit for bit
+    (the arrival counters are zero again after every launch)."""
+    q, kq, ks, vq, vs = _kv_inputs(8, 2048, 8, 4, 160, seed=21, device=cuda_device,
+                                   dtype=torch.bfloat16)
+    kv_kernel.int8_kv_decode(q, kq, ks, vq, vs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kv_kernel.int8_kv_decode(q, kq, ks, vq, vs)
+    for seed in (22, 23):
+        fresh = _kv_inputs(8, 1, 8, 4, 160, seed=seed, device=cuda_device, dtype=torch.bfloat16)[0]
+        q.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, kv_kernel.int8_kv_decode(fresh, kq, ks, vq, vs))
+
+
+@pytest.mark.cuda
+def test_int8_kv_decode_cuda_repeats_bit_for_bit(cuda_device):
+    """Path 4's shape 50 times back to back: every output equals the first,
+    which a merge that read another split's partials before they landed
+    would break."""
+    args = _kv_inputs(8, 2048, 8, 4, 160, seed=24, device=cuda_device, dtype=torch.bfloat16)
+    outs = [kv_kernel.int8_kv_decode(*args) for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    rtol, atol = KV_TOL[torch.bfloat16]
+    torch.testing.assert_close(outs[0].float(), decode_attention_ref(*args).float(), rtol=rtol, atol=atol)
 
 
 @pytest.mark.cuda
