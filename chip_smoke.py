@@ -9,9 +9,10 @@ without them it exits non-zero before printing any result.  Phases:
   1. card: ``nvidia-smi`` name and power limit; build the port's four
      kernels, one ``nvcc`` per source, all started together; count the
      tensor-core instructions of the flash-attention kernels in the SASS,
-     and the int8-KV decode kernel's I2F (none allowed), PRMT and HMMA;
-     print the decode kernel's launch plan (blocks a SM, cp.async stages,
-     bytes in flight);
+     the int8-matmul kernel's IMMA and PRMT, and the int8-KV decode
+     kernel's I2F (none allowed), PRMT and HMMA; print the int8 matmul's
+     and the decode kernel's launch plans (tiles, splits, registers,
+     blocks a SM, cp.async stages, bytes in flight);
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at wider, ragged and extreme ones (attention
      and decode also against a stand-in fault), with times
@@ -316,6 +317,47 @@ def kv_sass(kv_kernel) -> dict[str, dict[str, int]]:
     return counts
 
 
+def int8_sass(i8_kernel) -> dict[str, dict[str, int]]:
+    """Phase 1: the int8-matmul kernel multiplies on the int8 tensor cores
+    (IMMA) and builds B's fragments by PRMT byte transposes: count both per
+    instantiation (block tile, output mode, copy width), fail on an
+    instantiation without IMMA or PRMT.  Then the launch plan at the
+    sweep's largest shape and at ``bench_kernels``'s: tile, ring,
+    registers, shared memory and blocks."""
+    import re
+
+    import torch
+
+    modes = {0: "f32", 1: "bf16", 2: "int32"}
+    counts = {}
+    for fn, c in sass_counts(i8_kernel.LIBRARY, ("IMMA", "PRMT")).items():
+        # int8_matmul_kernel<Tile<MI, WM, WN, KW>, MODE, VEC>
+        m = re.search(r"TileI((?:Li\d+E)+)EELi(\d)ELb(\d)E", fn)
+        if m:
+            mi, wm, wn = (int(v) for v in re.findall(r"Li(\d+)E", m.group(1))[:3])
+            name = f"{16 * mi * wm}x{32 * wn} {modes[int(m.group(2))]}{'' if m.group(3) == '1' else ' bytes'}"
+        else:
+            name = fn
+        counts[name] = c
+    print("  cuobjdump -sass int8_matmul, per instantiation:",
+          "; ".join(f"{k}: " + " ".join(f"{op} {n}" for op, n in v.items())
+                    for k, v in sorted(counts.items())))
+    expected = 3 * (len(i8_kernel.CONFIGS) + 1)
+    check(len(counts) == expected, f"int8_matmul: {len(counts)} kernel instantiations, expected {expected}")
+    for name, c in counts.items():
+        check(c["IMMA"] > 0 and c["PRMT"] > 0,
+              f"int8_matmul {name} lacks IMMA or PRMT, so it is not the designed kernel: {c}")
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for M, K, N in ((1024, 512, 512), (1024, 4096, 4096)):
+        tp = i8_kernel.tile_plan(M, N, K, n_sms)
+        kp = i8_kernel.launch_plan(0, tp.config)
+        print(f"  int8_matmul plan at {(M, K, N)}: {tp.bm} x {tp.bn} tiles of {kp.threads} threads,"
+              f" {kp.stages} stages of {kp.bk} bytes of K, {tp.n_tiles} blocks on {n_sms} SMs;"
+              f" {kp.registers} registers, {kp.local_bytes} B local,"
+              f" {kp.smem_bytes} B shared memory a block, {kp.blocks_per_sm} blocks a SM")
+    return counts
+
+
 def calib_gate_phase(torch, calib_gate, calib_gate_ref):
     """Phase 2: the calib-gate kernel against its plain version on the card."""
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -382,7 +424,8 @@ def int8_phase(torch, i8_kernel, i8_ref):
     from repro_torch.slowtier.sweep import BATCH_SIZES, SWEEP_K, SWEEP_N, SWEEP_ROWS
 
     cases = [(f"sweep b={b}", SWEEP_ROWS * b, SWEEP_K, SWEEP_N) for b in BATCH_SIZES]
-    cases += [("ragged", 37, 100, 77), ("bench_kernels", 1024, 4096, 4096),
+    cases += [("one row", 1, SWEEP_K, SWEEP_N), ("ragged", 37, 100, 77),
+              ("misaligned", 37, 100, 77), ("bench_kernels", 1024, 4096, 4096),
               ("DeiT-B qkv x16", 3168, 768, 2304), ("DeiT-B fc1 x16", 3168, 768, 3072),
               ("DeiT-B fc2 x16", 3168, 3072, 768)]
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -392,6 +435,10 @@ def int8_phase(torch, i8_kernel, i8_ref):
     for name, M, K, N in cases:
         xq, xs = i8_ref.quantize_rows(torch.randn(M, K, generator=g, device="cuda"))
         wq, ws = i8_ref.quantize_cols(torch.randn(K, N, generator=g, device="cuda"))
+        if name == "misaligned":  # operands one byte past an aligned base: the byte-load copies
+            xq, wq = (torch.empty(t.numel() + 1, dtype=torch.int8, device="cuda")[1:].view(t.shape).copy_(t)
+                      for t in (xq, wq))
+            check(xq.data_ptr() % 16 == 1 and wq.data_ptr() % 16 == 1, "misaligned views")
         acc = i8_kernel.int8_matmul_acc(xq, wq)
         check(torch.equal(acc, i8_ref.int8_acc_ref(xq, wq)), f"{name} {(M, K, N)}: int32 product differs")
         for dtype in (torch.float32, torch.bfloat16):
@@ -1032,6 +1079,7 @@ def main() -> int:
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
     build_phase([cg_kernel.LIBRARY, fa_kernel.LIBRARY, i8_kernel.LIBRARY, kv_kernel.LIBRARY])
     flash_sass(fa_kernel.LIBRARY)
+    int8_sass(i8_kernel)
     kv_sass(kv_kernel)
     phase_done("1 (build)")
 

@@ -245,10 +245,13 @@ def test_deit_forward_card_matches_cpu(cuda_device):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-# the f(batch) sweep's (32·b, 512, 512), a ragged shape, the reference
-# benchmark's, and DeiT-B's projections at 16 frames
+# the f(batch) sweep's (32·b, 512, 512) and two smaller M, below
+# torch._int_mm's M > 16; a ragged shape, a long ragged K (byte-load
+# copies), the reference benchmark's, and DeiT-B's projections
+# at 16 frames
 INT8_CASES = [(32 * b, 512, 512) for b in (1, 2, 4, 8, 16, 32)] + [
-    (37, 100, 77), (1024, 4096, 4096), (3168, 768, 2304), (3168, 768, 3072), (3168, 3072, 768)]
+    (1, 512, 512), (16, 512, 512), (37, 100, 77), (64, 4100, 72), (1024, 4096, 4096),
+    (3168, 768, 2304), (3168, 768, 3072), (3168, 3072, 768)]
 
 
 def _quantized(M, K, N, seed, device):
@@ -272,6 +275,82 @@ def test_int8_matmul_cuda_bit_equal_to_plain_version(cuda_device, M, K, N):
     assert torch.equal(acc, i8_ref.int8_acc_ref(xq, wq))
     assert torch.equal(out32, i8_ref.int8_matmul_ref(xq, xs, wq, ws, torch.float32))
     assert torch.equal(out16, i8_ref.int8_matmul_ref(xq, xs, wq, ws, torch.bfloat16))
+
+
+def _held_to_plain_version(xq, xs, wq, ws):
+    acc = i8_kernel.int8_matmul_acc(xq, wq)
+    out32 = i8_kernel.int8_matmul(xq, xs, wq, ws, out_dtype=torch.float32)
+    out16 = i8_kernel.int8_matmul(xq, xs, wq, ws, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, i8_ref.int8_acc_ref(xq, wq))
+    assert torch.equal(out32, i8_ref.int8_matmul_ref(xq, xs, wq, ws, torch.float32))
+    assert torch.equal(out16, i8_ref.int8_matmul_ref(xq, xs, wq, ws, torch.bfloat16))
+    return acc
+
+
+@pytest.mark.cuda
+def test_int8_matmul_cuda_extreme_values_exact(cuda_device):
+    """(33, 16384, 40), every entry at ±127 or -128: the int32 sums reach
+    ~2^28 and stay exact over 256 K tiles in one block.  Row 0 of x_q and
+    columns 0 and 1 of w_q are constant (-128, -128 and 127), so entry
+    (0, 0) is 2^28 and (0, 1) is -128·127·16384; the rest are random."""
+    rng = np.random.default_rng(31)
+    x, w = (rng.choice(np.array([-128, -127, 127], np.int8), size=shape)
+            for shape in ((33, 16384), (16384, 40)))
+    x[0], w[:, 0], w[:, 1] = -128, -128, 127
+    xq, wq = torch.as_tensor(x, device=cuda_device), torch.as_tensor(w, device=cuda_device)
+    xs = torch.as_tensor(rng.uniform(1e-3, 1e-2, (33, 1)).astype(np.float32), device=cuda_device)
+    ws = torch.as_tensor(rng.uniform(1e-3, 1e-2, (1, 40)).astype(np.float32), device=cuda_device)
+    acc = _held_to_plain_version(xq, xs, wq, ws)
+    assert int(acc[0, 0]) == 2**28 and int(acc[0, 1]) == -128 * 127 * 16384
+
+
+@pytest.mark.cuda
+def test_int8_matmul_cuda_misaligned_views(cuda_device):
+    """(37, 100, 77) with x_q and w_q one byte past an aligned base: the
+    byte-load copies, bit-equal to the plain version."""
+    xq, xs, wq, ws = _quantized(37, 100, 77, seed=32, device=cuda_device)
+    xq1, wq1 = (torch.empty(t.numel() + 1, dtype=torch.int8, device=cuda_device)[1:].view(t.shape).copy_(t)
+                for t in (xq, wq))
+    assert xq1.data_ptr() % 16 == 1 and wq1.data_ptr() % 16 == 1 and xq1.is_contiguous()
+    acc = _held_to_plain_version(xq1, xs, wq1, ws)
+    assert torch.equal(acc, i8_kernel.int8_matmul_acc(xq, wq))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(1024, 512, 512), (32, 4096, 128)])
+def test_int8_matmul_cuda_graph_replay(cuda_device, M, K, N):
+    """At the sweep's (1024, 512, 512), and at a long K over few output
+    tiles: one warm-up call, one call captured in a CUDA graph, then new
+    x_q values copied in and the graph replayed, twice; each replay
+    matches an eager call bit for bit."""
+    xq, xs, wq, ws = _quantized(M, K, N, seed=33, device=cuda_device)
+    i8_kernel.int8_matmul(xq, xs, wq, ws)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = i8_kernel.int8_matmul(xq, xs, wq, ws)
+    for seed in (34, 35):
+        fresh = _quantized(M, K, N, seed=seed, device=cuda_device)[0]
+        xq.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, i8_kernel.int8_matmul(fresh, xs, wq, ws))
+        assert torch.equal(out, i8_ref.int8_matmul_ref(fresh, xs, wq, ws))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(32, 512, 512), (1024, 512, 512), (32, 4096, 128)])
+def test_int8_matmul_cuda_repeats_bit_for_bit(cuda_device, M, K, N):
+    """The sweep's (32, 512, 512) and (1024, 512, 512), and a long K over
+    few output tiles, 50 times back to back: every output equals the
+    first and the plain version's, which a ring stage reused before every
+    warp had read it would break."""
+    xq, xs, wq, ws = _quantized(M, K, N, seed=36 + M, device=cuda_device)
+    outs = [i8_kernel.int8_matmul(xq, xs, wq, ws) for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert torch.equal(outs[0], i8_ref.int8_matmul_ref(xq, xs, wq, ws))
 
 
 @pytest.mark.cuda
