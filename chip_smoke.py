@@ -9,13 +9,16 @@ without them it exits non-zero before printing any result.  Phases:
   1. card: ``nvidia-smi`` name and power limit; build the port's four
      kernels, one ``nvcc`` per source, all started together; count the
      tensor-core instructions of the flash-attention kernels in the SASS,
-     the int8-matmul kernel's IMMA and PRMT, and the int8-KV decode
-     kernel's I2F (none allowed), PRMT and HMMA; print the int8 matmul's
+     the int8-matmul kernel's IMMA and PRMT, the int8-KV decode
+     kernel's I2F (none allowed), PRMT and HMMA, and the calib-gate
+     kernel's 128-bit loads and cluster barriers; print the int8 matmul's
      and the decode kernel's launch plans (tiles, splits, registers,
      blocks a SM, cp.async stages, bytes in flight);
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and at wider, ragged and extreme ones (attention
-     and decode also against a stand-in fault), with times
+     and decode also against a stand-in fault; the calib gate also on
+     bf16 and f16 logits, misaligned bases and LM vocabularies, with its
+     split plan), with times
      (and, for attention, ``scaled_dot_product_attention``'s, for the int8
      matmul ``torch._int_mm``'s and, for the int8-KV decode, SDPA's on a
      bf16 cache dequantized beforehand, as yardsticks);
@@ -358,25 +361,78 @@ def int8_sass(i8_kernel) -> dict[str, dict[str, int]]:
     return counts
 
 
-def calib_gate_phase(torch, calib_gate, calib_gate_ref):
-    """Phase 2: the calib-gate kernel against its plain version on the card."""
+def calib_sass(cg_kernel) -> dict[str, dict[str, int]]:
+    """Phase 1: the calib-gate kernel reads logits by 128-bit loads and
+    merges a row's blocks behind cluster barriers: count both per
+    instantiation (dtype, vectors a thread) and fail on one without them."""
+    import re
+
+    ops = ("LDG.E.NA.128.CONSTANT", "UCGABAR_ARV", "UCGABAR_WAIT")
+    dtypes = {"0": "f32", "1": "bf16", "2": "f16"}
+    counts = {}
+    for fn, c in sass_counts(cg_kernel.LIBRARY, ops).items():
+        m = re.search(r"calib_gate_kernelILi(\d)ELi(\d)E", fn)
+        counts[f"{dtypes[m.group(1)]} vpt={m.group(2)}" if m else fn] = c
+    print("  cuobjdump -sass calib_gate, per instantiation:",
+          "; ".join(f"{k}: " + " ".join(f"{op} {n}" for op, n in v.items()) for k, v in sorted(counts.items())))
+    check(len(counts) == 3 * len(cg_kernel.VPTS), f"calib_gate: {len(counts)} kernel instantiations")
+    for name, c in counts.items():
+        check(all(n > 0 for n in c.values()),
+              f"calib_gate {name} lacks 128-bit loads or the cluster barrier, so it is not the designed kernel: {c}")
+    return counts
+
+
+def calib_gate_cases(torch):
+    """Phase 2's calib-gate inputs, (name, logits), from seed 0: the paths'
+    shapes and wider, ragged, extreme, bf16 and f16 ones."""
     g = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(B, V, dtype=torch.float32):
+        return (torch.randn(B, V, generator=g, device="cuda") * 3).to(dtype)
+
+    def misaligned(x):  # one element past a 16-byte aligned base
+        return torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")[1:].view(x.shape).copy_(x)
+
     extreme = torch.cat([torch.full((16, 512), -1e4, device="cuda"),
                          torch.randn(16, 512, generator=g, device="cuda") * 50], dim=1)
     extreme[0] = -torch.inf
     extreme[1] = 1e4
     extreme[2, ::2] = -1e4
-    cases = [("main path", torch.randn(16, 1000, generator=g, device="cuda") * 3),
-             ("8-stream round", torch.randn(N_STREAMS * BATCH, 1000, generator=g, device="cuda") * 3),
-             ("wide", torch.randn(128, 4096, generator=g, device="cuda") * 3),
-             ("ragged", torch.randn(37, 1001, generator=g, device="cuda") * 3),
-             ("vocab 152k", torch.randn(8, 152064, generator=g, device="cuda") * 3),
+    cases = [("main path", randn(16, 1000)),
+             ("8-stream round", randn(N_STREAMS * BATCH, 1000)),
+             ("wide", randn(128, 4096)),
+             ("ragged", randn(37, 1001)),
+             ("vocab 152k", randn(8, 152064)),
              ("extreme", extreme)]
+    return cases + [("StableLM logits", randn(LM_BATCH, 100352, torch.bfloat16)),
+                    ("bench_kernels", randn(256, 102400)),
+                    ("bench_kernels", randn(256, 102400, torch.bfloat16)),
+                    ("one row", randn(1, 152064)),
+                    ("odd misaligned", misaligned(randn(37, 1001, torch.bfloat16))),
+                    ("odd misaligned", misaligned(randn(37, 1001, torch.float16)))]
+
+
+def calib_bound(B, V, elem_bytes):
+    """Least time (ms) for the card, and what bounds it: the logits read
+    once, calib (f32) and gate (bool) written once, against 4 float32
+    operations a logit (compare, subtract, exp, add)."""
+    n_bytes = B * V * elem_bytes + B * 4 + B
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, B * V * 4 / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def calib_gate_phase(torch, cg_kernel, calib_gate_ref):
+    """Phase 2: the calib-gate kernel against its plain version on the card."""
+    calib_gate = cg_kernel.calib_gate
+    l2_bytes = torch.cuda.get_device_properties(0).L2_cache_size
     rows, max_err = [], 0.0
-    print("calib_gate vs calib_gate_ref, inputs resident in L2; 'loop' is CUDA events over 200"
-          " back-to-back calls from Python, 'device' the profiler's kernel time per call:")
-    for name, x in cases:
+    print("calib_gate vs calib_gate_ref, 'loop' is CUDA events over 200 back-to-back calls from"
+          " Python, 'device' the profiler's kernel time per call; plan = blocks a row (one cluster),"
+          " threads a block, 16-byte vectors a thread; inputs resident in L2 unless marked:")
+    for name, x in calib_gate_cases(torch):
         B, V = x.shape
+        dtype = str(x.dtype).removeprefix("torch.")
+        plan = cg_kernel.plan_for(x)
         for a, b, theta in ((-6.0, 2.0, 0.5), (PLATT[0], PLATT[1], 0.3)):
             ck, gk = calib_gate(x, a, b, theta)
             cr, gr = calib_gate_ref(x, a, b, theta)
@@ -390,18 +446,18 @@ def calib_gate_phase(torch, calib_gate, calib_gate_ref):
         plain_ms = cuda_ms(lambda: calib_gate_ref(x, -6.0, 2.0, 0.5))
         dev_ms = device_ms(lambda: calib_gate(x, -6.0, 2.0, 0.5))
         plain_dev_ms = device_ms(lambda: calib_gate_ref(x, -6.0, 2.0, 0.5))
-        n_bytes = B * V * 4 + B * 4 + B  # logits read once; calib f32 and gate bool written
-        n_ops = B * V * 4  # compare, subtract, exp, add per logit
-        bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
-        bound_by = "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / FP32_OPS_PER_S else "operations"
+        bound_ms, bound_by = calib_bound(B, V, x.element_size())
         # the line reports device time: the timed loop is bound by the host's
         # launch cost (~30-160 us a call on a shared host), not by the kernel
         rows.append(dict(case=name, B=B, V=V, bound_ms=bound_ms, bound_by=bound_by,
                          ms=ms if dev_ms is None else dev_ms,
                          plain_ms=plain_ms if plain_dev_ms is None else plain_dev_ms))
-        print(f"  {name:14s} ({B:4d},{V:6d})  kernel loop {_us(ms)} device {_us(dev_ms)}"
+        resident = "" if x.numel() * x.element_size() < l2_bytes else \
+            f", not resident in L2: {x.numel() * x.element_size() / 1e6:.1f} MB against its {l2_bytes / 1e6:.1f}"
+        print(f"  {name:15s} ({B:4d},{V:6d}) {dtype:8s} plan {plan.splits:2d} x {plan.threads:4d} x {plan.vpt}"
+              f"  kernel loop {_us(ms)} device {_us(dev_ms)}"
               f" | plain loop {_us(plain_ms)} device {_us(plain_dev_ms)}"
-              f" | bound {_us(bound_ms)} ({bound_by})")
+              f" | bound {_us(bound_ms)} ({bound_by}{resident})")
     print(f"  max |calib - plain| over all shapes: {max_err:.3e} (atol {CALIB_ATOL}); gates equal;"
           " no single PyTorch call computes this op, so library_ms is null")
     return rows, max_err
@@ -1081,10 +1137,11 @@ def main() -> int:
     flash_sass(fa_kernel.LIBRARY)
     int8_sass(i8_kernel)
     kv_sass(kv_kernel)
+    calib_sass(cg_kernel)
     phase_done("1 (build)")
 
     # ---- 2. kernels vs plain versions ------------------------------------- #
-    cg_rows, cg_err = calib_gate_phase(torch, cg_kernel.calib_gate, calib_gate_ref)
+    cg_rows, cg_err = calib_gate_phase(torch, cg_kernel, calib_gate_ref)
     fa_rows, fa_err = flash_phase(torch, fa_kernel.flash_attention, attention_ref)
     i8_rows, i8_err = int8_phase(torch, i8_kernel, i8_ref)
     kv_rows, kv_err = kv_phase(torch, kv_kernel, decode_attention_ref)

@@ -5,7 +5,9 @@ runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Kernel against plain version: ``calib`` within 1e-6 (the row sum in
-another order), ``gate`` exact; attention within 2e-5 in float32 (three
+another order, across a cluster's blocks), ``gate`` exact, for float32,
+bfloat16 and float16 logits, at every split of a row, from a CUDA graph
+and on two streams at once; attention within 2e-5 in float32 (three
 TF32 products a product, each within ~2^-20 of f32's, and the softmax
 summed in another order) and (rtol, atol) = (8e-3, 5e-3) in
 bfloat16: the tensor-core kernel rounds P to bf16 before P·V (at most
@@ -57,18 +59,89 @@ def _logits(B, V, seed, scale=3.0):
     return (np.random.default_rng(seed).standard_normal((B, V)) * scale).astype(np.float32)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,V", [(16, 1000), (128, 4096), (37, 1001), (8, 152064), (1, 1)])
-def test_calib_gate_cuda_matches_plain_version(cuda_device, B, V):
-    x = torch.as_tensor(_logits(B, V, seed=B * V), device=cuda_device)
+def _calib_logits(B, V, seed, device, dtype=torch.float32, misaligned=False):
+    x = torch.as_tensor(_logits(B, V, seed=seed), device=device).to(dtype)
+    if misaligned:  # one element past a 16-byte aligned base
+        x = torch.empty(B * V + 1, dtype=dtype, device=device)[1:].view(B, V).copy_(x)
+    return x
+
+
+def _calib_matches_plain(x):
     for a, b, theta in PLATT:
         before = cg_kernel.calib_gate.launches
         ck, gk = cg_kernel.calib_gate(x, a, b, theta)
         torch.cuda.synchronize()
         assert cg_kernel.calib_gate.launches == before + 1
         cr, gr = calib_gate_ref(x, a, b, theta)
+        assert ck.dtype == torch.float32 and gk.dtype == torch.bool
         torch.testing.assert_close(ck, cr, rtol=0, atol=1e-6)
         assert torch.equal(gk, gr)
+
+
+# the paths' shapes, LM vocabularies (bf16 as StableLM's decode gives them),
+# bench_kernels' (not resident in L2), one row, odd rows on a misaligned base
+CALIB_CASES = [(16, 1000, "float32", False), (128, 4096, "float32", False), (37, 1001, "float32", False),
+               (8, 152064, "float32", False), (1, 1, "float32", False), (8, 100352, "bfloat16", False),
+               (256, 102400, "float32", False), (256, 102400, "bfloat16", False), (1, 152064, "float32", False),
+               (37, 1001, "bfloat16", True), (37, 1001, "float16", True), (5, 3, "float16", True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,V,dtype,misaligned", CALIB_CASES)
+def test_calib_gate_cuda_matches_plain_version(cuda_device, B, V, dtype, misaligned):
+    _calib_matches_plain(_calib_logits(B, V, B * V, cuda_device, getattr(torch, dtype), misaligned))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_calib_gate_cuda_every_split(cuda_device, monkeypatch, splits, dtype):
+    """Every cluster size the kernel takes, forced at (8, 152064)."""
+    plan = cg_kernel.split_plan
+    monkeypatch.setattr(cg_kernel, "split_plan", lambda *a, **kw: plan(*a, splits=splits))
+    x = _calib_logits(8, 152064, splits, cuda_device, getattr(torch, dtype))
+    assert cg_kernel.plan_for(x).splits == splits
+    _calib_matches_plain(x)
+
+
+@pytest.mark.cuda
+def test_calib_gate_cuda_graph_replay(cuda_device):
+    """A call captured in a CUDA graph replays the kernel on new logits."""
+    x = _calib_logits(8, 152064, 3, cuda_device)
+    assert cg_kernel.plan_for(x).splits > 1  # a cluster launch
+    cg_kernel.calib_gate(x, -6.0, 2.0, 0.5)  # warm: built, plan and occupancy known
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            calib, gate = cg_kernel.calib_gate(x, -6.0, 2.0, 0.5)
+    for seed in (4, 5):
+        x.copy_(_calib_logits(8, 152064, seed, cuda_device))
+        graph.replay()
+        torch.cuda.synchronize()
+        cr, gr = calib_gate_ref(x, -6.0, 2.0, 0.5)
+        torch.testing.assert_close(calib, cr, rtol=0, atol=1e-6)
+        assert torch.equal(gate, gr)
+
+
+@pytest.mark.cuda
+def test_calib_gate_cuda_two_streams_at_once(cuda_device):
+    """Calls on two streams may overlap: the kernel keeps no state on the card."""
+    xs = [_calib_logits(8, 152064, seed, cuda_device) for seed in (6, 7)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    out = [[], []]
+    for _ in range(20):
+        for i in (0, 1):
+            with torch.cuda.stream(streams[i]):
+                out[i].append(cg_kernel.calib_gate(xs[i], -6.0, 2.0, 0.5))
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        cr, gr = calib_gate_ref(xs[i], -6.0, 2.0, 0.5)
+        for ck, gk in out[i]:
+            torch.testing.assert_close(ck, cr, rtol=0, atol=1e-6)
+            assert torch.equal(gk, gr)
 
 
 @pytest.mark.cuda
@@ -87,11 +160,23 @@ def test_calib_gate_cuda_extreme_rows_finite(cuda_device):
 
 @pytest.mark.cuda
 def test_calib_gate_cuda_rejects_what_it_cannot_take(cuda_device):
-    x = torch.zeros(4, 10, device=cuda_device)
-    with pytest.raises(TypeError):
-        cg_kernel.calib_gate(x.half(), -6.0, 2.0, 0.5)
+    """float16 and bfloat16 are taken, as the TPU kernel takes them; float64,
+    integers, non-contiguous and 3-D logits raise without a launch."""
+    x = torch.as_tensor(_logits(4, 10, seed=0), device=cuda_device)
+    for dtype in (torch.float16, torch.bfloat16):
+        c, g = cg_kernel.calib_gate(x.to(dtype), -6.0, 2.0, 0.5)
+        cr, gr = calib_gate_ref(x.to(dtype), -6.0, 2.0, 0.5)
+        torch.testing.assert_close(c, cr, rtol=0, atol=1e-6)
+        assert torch.equal(g, gr)
+    before = cg_kernel.calib_gate.launches
+    for bad in (x.double(), x.to(torch.int32), x.to(torch.int8)):
+        with pytest.raises(TypeError):
+            cg_kernel.calib_gate(bad, -6.0, 2.0, 0.5)
     with pytest.raises(ValueError, match="contiguous"):
-        cg_kernel.calib_gate(x.t(), -6.0, 2.0, 0.5)
+        cg_kernel.calib_gate(torch.zeros(10, 4, device=cuda_device).t(), -6.0, 2.0, 0.5)
+    with pytest.raises(ValueError, match="shape"):
+        cg_kernel.calib_gate(x.view(2, 2, 10), -6.0, 2.0, 0.5)
+    assert cg_kernel.calib_gate.launches == before
     c, g = cg_kernel.calib_gate(x[:0], -6.0, 2.0, 0.5)
     assert c.shape == g.shape == (0,)
 

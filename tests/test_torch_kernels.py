@@ -100,7 +100,11 @@ def test_cuda_kernel_tests_skip_without_a_card():
         assert "needs an NVIDIA GPU" in out.stdout
 
 
-@pytest.mark.parametrize("V,threads",[(1, 32), (10, 32), (1000, 128), (1001, 128),
-                                       (4096, 512), (152064, 1024)])
+@pytest.mark.parametrize("V,threads", [(1, 32), (10, 32), (1000, 256), (1001, 256),
+                                        (4096, 512), (152064, 512)])
 def test_threads_per_row(V, threads):
-    assert cg_kernel._threads(V) == threads
+    """Threads a block when 256 float32 rows fill an H100 unsplit: enough
+    to cover a row in one chunk of the fewest vectors a thread, at most
+    512."""
+    plan = cg_kernel.split_plan(256, V, 4, 132)
+    assert plan.splits == 1 and plan.threads == threads
