@@ -37,14 +37,27 @@ without them it exits non-zero before printing any result.  Phases:
      int8 KV cache and the scales folded: prefill 8 prompts of 2048 random
      tokens, then 32 greedy decode steps, each layer's decode attention one
      launch of the int8-KV decode kernel.
+     3e. path 5, the paper's evaluation: (a) the ResNet-50 fast tier over
+     512 synthetic frames; the Table I calibrators (``fit_all``: Platt,
+     isotonic, temperature) fitted on the card's tensors of the first 256,
+     held against the same fits on the CPU, ECE and MCE on the other 256;
+     (b) the §V trace replay (``replay_trace``) of all six registered
+     policies x four calibrators over the card's predictions (Platt through
+     the calib-gate kernel with the card's coefficients; DeiT-B at each rung
+     of the 5-resolution ladder); (c) ``MultiStreamServer`` with split
+     offloading (a DeiT-B cut catalog as feature actions) over an LTE and
+     a WiFi trace-driven cell, and the same fleet with frames only.
      Each path's kernel launch counts are set to 0 just before its run and
-     read just after; then the same stream (path 4: 8 more decode steps)
-     runs again under ``torch.profiler`` for the device's idle share;
+     read just after; then the same stream (path 4: 8 more decode steps;
+     path 5: the split fleet) runs again under ``torch.profiler`` for the
+     device's idle share;
   4. one batch's fast pass on the card against the same pass on the CPU,
      (4b) DeiT-B's logits on two frames likewise, TF32 off, (4c) the
      multi-stream engine with the synthetic tiers on the card against the
-     CPU, and (4d) a 2-layer model at StableLM-12B's widths, prefill and
-     int8-fold decode, card (the kernel) against CPU (the plain version);
+     CPU, (4d) a 2-layer model at StableLM-12B's widths, prefill and
+     int8-fold decode, card (the kernel) against CPU (the plain version),
+     and (4e) path 5's split fleet with the synthetic tiers on the card
+     against the CPU;
   5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, and the script exits non-zero.
@@ -118,6 +131,12 @@ BW_MBPS = 5.0
 N_STREAMS = 8  # path 3: streams x frames each, 4 rounds of 16 frames a stream
 STREAM_FRAMES = 64
 BATCH_WINDOW_S = 0.02  # path 3: each replica's admission window
+N_EVAL = 512  # path 5: frames 0-255 fit the calibrators, 256-511 evaluate them
+CAL_ATOL = 1e-4  # path 5: Platt (a, b) card vs CPU; the temperature within this, relative
+REPLAY_NET = dict(bw_mbps=5.0, latency=0.05, deadline=0.2)  # path 5 (b)
+FAST_TIME = 0.020  # paper Table III: the fast tier's seconds a frame (the replay's local tier)
+# path 5 (c): bench_split.py's regime, the slow tier nearly as slow as the deadline
+SPLIT = dict(server_time=0.16, deadline=0.2, latency=0.03, max_cuts=4)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1099,6 +1118,231 @@ def multistream_card_vs_cpu() -> None:
     print("multi-stream engine, synthetic tiers, card vs CPU: equal summaries", json.dumps(out["cuda"]))
 
 
+def split_fleet(fast, slow, calibrate, S, device, split, **cfg_kw):
+    """Path 5 (c) and phase 4e: ``MultiStreamServer`` over two trace-driven
+    cells (an LTE trace at a 6 Mbps mean, a WiFi trace) in front of 2
+    serial replicas at T^o = 0.16 s with jsq placement.  With ``split`` the
+    planner's grid adds a DeiT-B cut catalog's feature actions; the catalog
+    is planning data (bytes, device-prefix time, suffix share), the slow
+    tier still answers every escalation with its whole forward."""
+    from repro_torch.configs.deit_b import FULL as DEIT_B
+    from repro_torch.core.netsim import mbps
+    from repro_torch.net import EdgeFabric, lte_trace, wifi_trace
+    from repro_torch.serving.engine import MultiStreamServer, ServeConfig
+    from repro_torch.split import build_action_table, catalog_for
+
+    cfg = ServeConfig(batch_size=BATCH, acc_server=ACC_SERVER, server_time=SPLIT["server_time"],
+                      deadline=SPLIT["deadline"], **cfg_kw)
+    if split:
+        cfg.actions = build_action_table(catalog_for(DEIT_B, max_cuts=SPLIT["max_cuts"]),
+                                         resolutions=cfg.resolutions, size_of=cfg.size_of,
+                                         acc_server=cfg.acc_server)
+    fabric = EdgeFabric.build(n_streams=S, n_cells=2, n_replicas=2, bandwidth_bps=mbps(6.0),
+                              latency=SPLIT["latency"], server_time=SPLIT["server_time"], placement="jsq",
+                              traces=[lte_trace(mean_mbps=6.0, seed=0), wifi_trace(seed=1)])
+    return MultiStreamServer(cfg, fast, slow, calibrate, None, n_streams=S, fabric=fabric, policy="cbo",
+                             device=device)
+
+
+def offload_mix(server, recs) -> dict:
+    """Escalations sent and landed in time, by action kind, from the round records."""
+    kind = server.fleet.action_table.kind
+    mix = {name: {"sent": 0, "landed": 0} for name in ("frame", "feature")}
+    for r in recs:
+        k = kind[r["res_idx"]][:, None]  # (S, 1): every escalation of a stream takes its action
+        for name, v in (("frame", 0), ("feature", 1)):
+            mix[name]["sent"] += int((r["esc"] & (k == v)).sum())
+            mix[name]["landed"] += int((r["esc"] & r["ok"] & (k == v)).sum())
+    return mix
+
+
+def evaluation_phase(fast, deit, ms_frames, ms_labels, counted, flash_per_call):
+    """Phase 3e, path 5: the paper's evaluation on the card.  (a) Table I:
+    ``fit_all`` on the card's fast-tier scores, logits and labels of 256
+    frames, held against the same fits on the CPU, scored by ECE and MCE on
+    256 more; (b) §V: ``replay_trace`` of every registered policy under
+    every calibrator over the card's predictions; (c) the split-offloading
+    fleet over trace-driven cells, and the same fleet with frames only.
+    ``counted`` maps each kernel's name to its wrapper; every count is set
+    to 0 just before (a) and read after (c).  Then (c)'s split run again
+    under one trace of the card.  Returns the launches and (a, b)."""
+    import torch
+
+    from repro_torch.core.calibration import IsotonicCalibrator, ece, fit_all, mce
+    from repro_torch.core.cascade import degrade_resolution, fast_pass
+    from repro_torch.core.confidence import max_softmax
+    from repro_torch.core.netsim import mbps, png_size_model
+    from repro_torch.data.video import VideoDataConfig, make_dataset
+    from repro_torch.policy import Env, available_policies, make_policy, replay_trace
+    from repro_torch.serving.engine import ServeConfig
+
+    t0 = time.perf_counter()
+    data = make_dataset(VideoDataConfig(n_classes=1000, img_res=224, frames_per_video=16), N_EVAL // 16, seed=3)
+    frames, labels_np = data["frames"], data["labels"].astype(np.int64)
+    check(frames.shape == (N_EVAL, 224, 224, 3), f"path 5 frames {frames.shape}")
+    print(f"set-up: path 5, {N_EVAL} frames {time.perf_counter() - t0:.2f} s")
+    fit, ev = slice(0, N_EVAL // 2), slice(N_EVAL // 2, N_EVAL)
+    for fn in counted.values():
+        fn.launches = 0
+    t_path = time.perf_counter()
+
+    # (a) Table I: the calibrators fitted where the card's tensors live
+    def batches(x):
+        return (torch.as_tensor(x[i:i + BATCH], device="cuda") for i in range(0, len(x), BATCH))
+
+    with torch.inference_mode():
+        logits = torch.cat([fast(x) for x in batches(frames)])
+    labels = torch.as_tensor(labels_np, device="cuda")
+    scores = max_softmax(logits)
+    correct = logits.argmax(-1) == labels
+    t1 = time.perf_counter()
+    cals = fit_all(scores[fit], correct[fit], logits[fit], labels[fit])
+    fit_s = time.perf_counter() - t1
+    host = fit_all(scores[fit].cpu(), correct[fit].cpu(), logits[fit].cpu(), labels[fit].cpu())
+    check(sorted(cals) == ["isotonic", "platt", "temperature", "uncalibrated"], f"fit_all keys {sorted(cals)}")
+    platt, iso, temp = cals["platt"], cals["isotonic"], cals["temperature"]
+    check(abs(platt.a - host["platt"].a) <= CAL_ATOL and abs(platt.b - host["platt"].b) <= CAL_ATOL,
+          f"Platt card {platt} vs CPU {host['platt']}")
+    check(np.array_equal(iso.thresholds, host["isotonic"].thresholds)
+          and np.array_equal(iso.values, host["isotonic"].values), "isotonic knots card vs CPU")
+    check(abs(temp.temperature / host["temperature"].temperature - 1) <= CAL_ATOL,
+          f"temperature card {temp.temperature} vs CPU {host['temperature'].temperature}")
+    # random weights leave ``correct`` nearly constant and the isotonic fit
+    # one knot or two; a correctness planted from the scores' rank also
+    # exercises the pools, and the card's knot lookup against the CPU's
+    rank = scores[fit].argsort().argsort().cpu().numpy() / (N_EVAL // 2)
+    planted = IsotonicCalibrator.fit(scores[fit], torch.as_tensor(
+        np.random.default_rng(3).uniform(size=N_EVAL // 2) < rank, device="cuda"))
+    check(torch.equal(planted(scores[ev]).cpu(), planted(scores[ev].cpu())), "isotonic lookup card vs CPU")
+    ab = (platt.a, platt.b)
+    correct_ev = correct[ev].cpu().numpy()
+    print(f"path 5 on {card_line()}: (a) Table I, ResNet-50 FULL fast tier over {N_EVAL} frames"
+          f" (make_dataset seed 3), fast-tier accuracy {float(correct.float().mean()):.4f};"
+          f" fit_all on the card's tensors of frames 0-{N_EVAL // 2 - 1} in {fit_s:.3f} s"
+          f" (host clock): Platt (a, b) = ({platt.a:.6f}, {platt.b:.6f}), CPU ({host['platt'].a:.6f},"
+          f" {host['platt'].b:.6f}); isotonic {len(iso.values)} knots, bit-equal to the CPU fit (planted"
+          f" correctness: {len(planted.values)} knots, the card's lookup bit-equal to the CPU's);"
+          f" T = {temp.temperature:.6f}, CPU {host['temperature'].temperature:.6f}")
+
+    # (b) §V replay over the card's predictions
+    res_ladder = ServeConfig().resolutions
+    with torch.inference_mode():
+        fused = [fast_pass(fast, None, x, use_fused=True, platt_ab=ab) for x in batches(frames[ev])]
+        fast_pred = torch.cat([p for p, _ in fused]).cpu().numpy()
+        conf = {"uncalibrated": cals["uncalibrated"](scores[ev]), "platt": torch.cat([c for _, c in fused]),
+                "isotonic": iso(scores[ev]), "temperature": temp(scores[ev])}
+        slow_pred = np.stack([torch.cat([deit(degrade_resolution(x, r)).argmax(-1) for x in batches(frames[ev])])
+                              .cpu().numpy() for r in res_ladder])
+    check(slow_pred.shape == (len(res_ladder), N_EVAL // 2), f"slow_pred {slow_pred.shape}")
+    conf = {k: v.cpu().numpy() for k, v in conf.items()}
+    platt_gap = float(np.abs(conf["platt"] - platt(scores[ev]).cpu().numpy()).max())
+    print("  ECE / MCE on frames 256-511:", ", ".join(
+        f"{k} {ece(c, correct_ev):.4f} / {mce(c, correct_ev):.4f}" for k, c in conf.items()),
+        f"(Platt through calib_gate vs Platt on the plain scores: max |diff| {platt_gap:.3e})")
+    gamma = 1.0 / ServeConfig().frame_rate
+    env = Env(bandwidth=mbps(REPLAY_NET["bw_mbps"]), latency=REPLAY_NET["latency"],
+              server_time=ServeConfig().server_time, deadline=REPLAY_NET["deadline"], acc_server=ACC_SERVER)
+    sizes = png_size_model(np.asarray(res_ladder))
+    local_acc = float(correct[fit].float().mean())
+    make = {"server": lambda: make_policy("server", frame_interval=gamma),
+            "greedy-rate": lambda: make_policy("greedy-rate", local_acc=local_acc),
+            "cbo": lambda: make_policy("cbo", max_backlog=None)}
+    knobs = {"server": dict(local_pred=None), "greedy-rate": dict(local_time=FAST_TIME), "optimal": dict(window=60)}
+    policies = available_policies()
+    check(len(policies) == 6, f"registered policies {policies}")
+    t1 = time.perf_counter()
+    table = {}
+    for name in policies:
+        for cal_name, c in conf.items():
+            r = replay_trace(make.get(name, lambda n=name: make_policy(n))(), conf=c, slow_pred=slow_pred,
+                             sizes=sizes, env=env, frame_interval=gamma,
+                             **{"local_pred": fast_pred, **knobs.get(name, {})})
+            acc = r.accuracy(labels_np[ev])
+            check(0.0 <= acc <= 1.0 and r.results.shape == (N_EVAL // 2,), f"replay {name}/{cal_name}")
+            table[name, cal_name] = (acc, r.n_offloaded, r.n_late)
+    replay_s = time.perf_counter() - t1
+    check(all(table["local", c][1] == 0 for c in conf), "the local policy offloaded a frame")
+    print(f"  (b) replay_trace, {len(policies)} policies x {len(conf)} calibrators over frames 256-511 at"
+          f" {REPLAY_NET['bw_mbps']} Mbps, latency {REPLAY_NET['latency']} s, deadline"
+          f" {REPLAY_NET['deadline']} s ({replay_s:.3f} s host); accuracy / offloaded / late:")
+    for name in policies:
+        print(f"    {name:12s}", " | ".join(f"{c} {table[name, c][0]:.4f} / {table[name, c][1]:3d} /"
+                                          f" {table[name, c][2]:3d}" for c in conf))
+
+    # (c) the split-offloading fleet, and the same fleet with frames only
+    S = ms_frames.shape[0]
+    n_rounds = -(-ms_frames.shape[1] // BATCH)
+    runs = {}
+    for split in (True, False):
+        fast_t, slow_t = TimedTier(fast, "fast"), TimedTier(deit, "slow")
+        server = split_fleet(fast_t, slow_t, None, S, "cuda", split, use_fused=True, platt_ab=ab)
+        recs = []
+        server.round_hook = recs.append
+        t1 = time.perf_counter()
+        metrics = server.process_streams(ms_frames, ms_labels)
+        torch.cuda.synchronize()
+        runs[split] = dict(server=server, metrics=metrics, wall=time.perf_counter() - t1,
+                           mix=offload_mix(server, recs), fast=fast_t, slow=slow_t)
+        check(len(fast_t.events) == n_rounds, f"path 5 (c): {len(fast_t.events)} fast-tier calls")
+        check(metrics.n_frames == ms_frames.shape[0] * ms_frames.shape[1], f"path 5 (c): {metrics.n_frames}")
+    path_s = time.perf_counter() - t_path
+    launches = {name: fn.launches for name, fn in counted.items()}
+    n_slow = len(res_ladder) * (N_EVAL // 2 // BATCH) + sum(len(r["slow"].events) for r in runs.values())
+    n_gate = N_EVAL // 2 // BATCH + 2 * n_rounds
+    check(launches["calib_gate"] == n_gate, f"path 5: calib_gate launched {launches['calib_gate']} times,"
+          f" expected {n_gate} (16 batches in (b), one a round in (c))")
+    check(launches["flash_attention"] == flash_per_call * n_slow,
+          f"path 5: flash_attention launched {launches['flash_attention']} times for {n_slow} slow-tier calls")
+    check(launches["int8_matmul"] == 0 and launches["int8_kv_decode"] == 0, f"path 5 launches {launches}")
+    split_run = runs[True]
+    check(split_run["mix"]["feature"]["sent"] > 0, f"path 5 (c): no feature action offloaded {split_run['mix']}")
+    check(runs[False]["mix"]["feature"]["sent"] == 0, "path 5 (c): a frames-only fleet sent features")
+    print(f"  (c) MultiStreamServer, {S} streams x {ms_frames.shape[1]} frames, {n_rounds} rounds, an LTE"
+          f" (6 Mbps mean) and a WiFi trace-driven cell, 2 replicas at T^o = {SPLIT['server_time']} s, jsq,"
+          f" deadline {SPLIT['deadline']} s, latency {SPLIT['latency']} s; DeiT-B cut catalog"
+          f" ({SPLIT['max_cuts']} cuts) as feature actions:")
+    for split, r in runs.items():
+        m = r["metrics"]
+        print(f"    {'split ' if split else 'frames'}: accuracy {m.accuracy:.4f}, misses {m.n_deadline_miss},"
+              f" offloaded {m.n_offloaded}, mix {json.dumps(r['mix'])}, frames/s {m.n_frames / r['wall']:.2f}"
+              f" (wall {r['wall']:.3f} s), slow-tier batch sizes {r['slow'].sizes}")
+    print(f"  path 5: {path_s:.2f} s; launches {launches} ({n_slow} slow-tier calls)")
+    again = split_fleet(fast, deit, None, S, "cuda", True, use_fused=True, platt_ab=ab)
+    box = []
+    busy_ms, traced_ms = traced(lambda: box.append(again.process_streams(ms_frames, ms_labels)), host_ops=False)
+    idle = "not measured" if busy_ms is None else f"{1 - busy_ms / traced_ms:.4f}"
+    n_frames = split_run["metrics"].n_frames
+    print(f"  traced repeat of the split fleet: device busy {busy_ms} ms of {traced_ms:.3f} ms wall"
+          f" ({n_frames / traced_ms * 1e3:.2f} frames/s); device idle share {idle};"
+          f" same summary as the counted run: {box[0].summary() == split_run['metrics'].summary()}")
+    return launches
+
+
+def split_fleet_card_vs_cpu() -> None:
+    """Phase 4e: path 5's split fleet with the synthetic closed-form tiers on
+    the card and on the CPU: the same decisions round for round, the same
+    offload mix and summary."""
+    from repro_torch.serving.synthetic import synthetic_streams, synthetic_tiers
+
+    imgs, labels = synthetic_streams(N_STREAMS, STREAM_FRAMES)
+    out = {}
+    for device in ("cuda", "cpu"):
+        fast, slow, cal = synthetic_tiers()
+        server = split_fleet(fast, slow, cal, N_STREAMS, device, True)
+        recs = []
+        server.round_hook = recs.append
+        summary = server.process_streams(imgs, labels).summary()
+        out[device] = (summary, offload_mix(server, recs),
+                       [tuple(r[k] for k in ("res_idx", "off_res", "off_kind", "esc", "ok")) for r in recs])
+    (sc, mc, dc), (sh, mh, dh) = out["cuda"], out["cpu"]
+    check(sc == sh and mc == mh, f"split fleet card {sc} {mc} vs CPU {sh} {mh}")
+    check(len(dc) == len(dh) and all(np.array_equal(a, b) for rc, rh in zip(dc, dh) for a, b in zip(rc, rh)),
+          "split fleet: decisions differ card vs CPU")
+    check(mc["feature"]["sent"] > 0, f"split fleet, synthetic tiers: no feature action offloaded {mc}")
+    print("split fleet, synthetic tiers, card vs CPU: equal decisions, summaries and offload mix",
+          json.dumps(mc), json.dumps(sc))
+
+
 def main() -> int:
     import torch
 
@@ -1204,6 +1448,14 @@ def main() -> int:
                             "int8_kv_decode": kv_kernel.int8_kv_decode})
     phase_done("3d (path 4)")
 
+    # ---- 3e. path 5: Table I calibrators, §V replay, split fleet ---------- #
+    eval_launches = evaluation_phase(fast, deit, ms_frames, ms_labels,
+                                     {"calib_gate": cg_kernel.calib_gate,
+                                      "flash_attention": fa_kernel.flash_attention,
+                                      "int8_matmul": i8_kernel.int8_matmul,
+                                      "int8_kv_decode": kv_kernel.int8_kv_decode}, DEIT_B.n_layers)
+    phase_done("3e (path 5)")
+
     # ---- 4. card against CPU ---------------------------------------------- #
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1240,6 +1492,9 @@ def main() -> int:
 
     # ---- 4d. StableLM-12B widths card against CPU -------------------------- #
     lm_card_vs_cpu(kv_kernel)
+
+    # ---- 4e. path 5's split fleet card against CPU ------------------------- #
+    split_fleet_card_vs_cpu()
     phase_done("4 (card against CPU)")
 
     # ---- 5. result -------------------------------------------------------- #
@@ -1249,28 +1504,28 @@ def main() -> int:
     kernels = [dict(name="calib_gate", route="cuda",
                     source="src/repro_torch/kernels/fused_calib_gate/csrc/calib_gate.cu",
                     replaces="src/repro/kernels/fused_calib_gate/kernel.py:48",
-                    launches=launches["calib_gate"], max_abs_err=cg_err,
+                    launches=launches["calib_gate"] + eval_launches["calib_gate"], max_abs_err=cg_err,
                     ms=cg_row["ms"], plain_ms=cg_row["plain_ms"],
                     bound_ms=cg_row["bound_ms"], bound_by=cg_row["bound_by"],
                     library_ms=None),
                dict(name="flash_attention", route="cuda",
                     source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention/kernel.py:62",
-                    launches=launches["flash_attention"], max_abs_err=fa_err,
+                    launches=launches["flash_attention"] + eval_launches["flash_attention"], max_abs_err=fa_err,
                     ms=fa_row["ms"], plain_ms=fa_row["plain_ms"],
                     bound_ms=fa_row["bound_ms"], bound_by=fa_row["bound_by"],
                     library_ms=fa_row["library_ms"]),
                dict(name="int8_matmul", route="cuda",
                     source="src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",
                     replaces="src/repro/kernels/int8_matmul/kernel.py:43",
-                    launches=launches["int8_matmul"], max_abs_err=i8_err,
+                    launches=launches["int8_matmul"] + eval_launches["int8_matmul"], max_abs_err=i8_err,
                     ms=i8_row["ms"], plain_ms=i8_row["plain_ms"],
                     bound_ms=i8_row["bound_ms"], bound_by=i8_row["bound_by"],
                     library_ms=i8_row["library_ms"]),
                dict(name="int8_kv_decode", route="cuda",
                     source="src/repro_torch/kernels/int8_kv_decode/csrc/int8_kv_decode.cu",
                     replaces="src/repro/kernels/int8_kv_decode/kernel.py:59",
-                    launches=lm_launches["int8_kv_decode"], max_abs_err=kv_err,
+                    launches=lm_launches["int8_kv_decode"] + eval_launches["int8_kv_decode"], max_abs_err=kv_err,
                     ms=kv_row["ms"], plain_ms=kv_row["plain_ms"],
                     bound_ms=kv_row["bound_ms"], bound_by=kv_row["bound_by"],
                     library_ms=kv_row["library_ms"])]

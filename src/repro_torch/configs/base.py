@@ -1,14 +1,20 @@
-"""Model configurations (port of ``repro.configs.base``: ResNet, ViT and the
-language models so far).
+"""Model configurations and the arch registry (port of
+``repro.configs.base``: ResNet, ViT, Swin and the language models so far).
 
 ``LMConfig`` keeps every field of the reference's, the MoE and MLA ones
 included, so that configs read the same; the port runs the dense GQA
 family (``models/transformer.py``) and raises on MLA and MoE.
+``SwinConfig`` is the configuration only (the split planner's catalog
+reads it); the Swin model is not ported (ROADMAP A.12).
+
+The registry covers the configs the port has.  An ``ArchSpec`` carries no
+shape set: the reference's per-family shapes feed its launch scaffolding,
+which comes with ROADMAP A.13.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 
 @dataclass(frozen=True)
@@ -59,6 +65,33 @@ class ViTConfig:
         pos = n_tok * d
         head = d * self.n_classes * (2 if self.distill_token else 1)
         return per_layer * self.n_layers + stem + pos + head + 2 * d
+
+
+@dataclass(frozen=True)
+class SwinConfig:
+    name: str
+    img_res: int
+    patch: int
+    window: int
+    depths: tuple[int, ...]
+    dims: tuple[int, ...]
+    n_classes: int = 1000
+    family: str = "vision"
+
+    @property
+    def heads(self) -> tuple[int, ...]:
+        return tuple(d // 32 for d in self.dims)
+
+    @property
+    def param_count(self) -> int:
+        total = 3 * self.patch**2 * self.dims[0]
+        for i, (dep, dim) in enumerate(zip(self.depths, self.dims)):
+            per = 4 * dim * dim + 2 * dim * 4 * dim + 4 * dim + (2 * self.window - 1) ** 2 * self.heads[i]
+            total += dep * per
+            if i < len(self.dims) - 1:
+                total += 4 * dim * self.dims[i + 1]  # patch merging
+        total += self.dims[-1] * self.n_classes
+        return int(total)
 
 
 @dataclass(frozen=True)
@@ -149,3 +182,55 @@ def _lm_param_breakdown(c: LMConfig) -> dict[str, int]:
         out["ffn_dense"] = shared + router + dense_res + first
     out["norms"] = (2 * c.n_layers + 1) * d
     return out
+
+
+# --------------------------------------------------------------------------- #
+# Arch spec + registry
+# --------------------------------------------------------------------------- #
+
+
+@dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    family: str  # lm | vision
+    full: object
+    smoke: object
+    source: str  # public citation
+    notes: str = ""
+
+
+_REGISTRY: dict[str, Callable[[], ArchSpec]] = {}
+
+
+def register(arch_id: str):
+    def deco(fn):
+        _REGISTRY[arch_id] = fn
+        return fn
+
+    return deco
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    if arch_id not in _REGISTRY:
+        _load_all()
+    if arch_id not in _REGISTRY:
+        raise KeyError(f"unknown arch {arch_id!r}; the port has {sorted(_REGISTRY)}"
+                       " (the rest of the reference's zoo: ROADMAP A.12)")
+    return _REGISTRY[arch_id]()
+
+
+def list_archs() -> list[str]:
+    _load_all()
+    return sorted(_REGISTRY)
+
+
+def _load_all() -> None:
+    # import every config module so that its @register runs
+    from repro_torch.configs import (  # noqa: F401
+        deit_b,
+        qwen15_32b,
+        resnet_50,
+        stablelm_12b,
+        swin_b,
+        vit_s16,
+    )

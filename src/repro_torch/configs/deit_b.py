@@ -2,7 +2,7 @@
 
 img_res=224 patch=16, 12L d_model=768 12H d_ff=3072, +1 distill token.
 """
-from repro_torch.configs.base import ViTConfig
+from repro_torch.configs.base import ArchSpec, ViTConfig, register
 
 FULL = ViTConfig(
     name="deit-b",
@@ -26,3 +26,14 @@ SMOKE = ViTConfig(
     n_classes=10,
     distill_token=True,
 )
+
+
+@register("deit-b")
+def spec() -> ArchSpec:
+    return ArchSpec(
+        arch_id="deit-b",
+        family="vision",
+        full=FULL,
+        smoke=SMOKE,
+        source="arXiv:2012.12877",
+    )

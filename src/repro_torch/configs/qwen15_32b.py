@@ -3,7 +3,7 @@
 [hf:Qwen/Qwen1.5-32B (family config per assignment)]
 64L d_model=5120 40H (kv=40, i.e. MHA) d_ff=27392 vocab=152064, QKV bias.
 """
-from repro_torch.configs.base import LMConfig
+from repro_torch.configs.base import ArchSpec, LMConfig, register
 
 FULL = LMConfig(
     name="qwen1.5-32b",
@@ -31,3 +31,14 @@ SMOKE = LMConfig(
     qkv_bias=True,
     ffn_act="swiglu",
 )
+
+
+@register("qwen1.5-32b")
+def spec() -> ArchSpec:
+    return ArchSpec(
+        arch_id="qwen1.5-32b",
+        family="lm",
+        full=FULL,
+        smoke=SMOKE,
+        source="hf:Qwen/Qwen1.5-0.5B (scaled per assignment)",
+    )

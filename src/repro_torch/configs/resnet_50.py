@@ -2,7 +2,7 @@
 
 img_res=224, depths 3-4-6-3, width=64, bottleneck blocks.
 """
-from repro_torch.configs.base import ResNetConfig
+from repro_torch.configs.base import ArchSpec, ResNetConfig, register
 
 FULL = ResNetConfig(
     name="resnet-50",
@@ -18,3 +18,14 @@ SMOKE = ResNetConfig(
     width=16,
     n_classes=10,
 )
+
+
+@register("resnet-50")
+def spec() -> ArchSpec:
+    return ArchSpec(
+        arch_id="resnet-50",
+        family="vision",
+        full=FULL,
+        smoke=SMOKE,
+        source="arXiv:1512.03385",
+    )

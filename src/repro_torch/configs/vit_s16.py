@@ -2,7 +2,7 @@
 
 img_res=224 patch=16, 12L d_model=384 6H d_ff=1536.
 """
-from repro_torch.configs.base import ViTConfig
+from repro_torch.configs.base import ArchSpec, ViTConfig, register
 
 FULL = ViTConfig(
     name="vit-s16",
@@ -24,3 +24,14 @@ SMOKE = ViTConfig(
     d_ff=96,
     n_classes=10,
 )
+
+
+@register("vit-s16")
+def spec() -> ArchSpec:
+    return ArchSpec(
+        arch_id="vit-s16",
+        family="vision",
+        full=FULL,
+        smoke=SMOKE,
+        source="arXiv:2010.11929",
+    )

@@ -5,11 +5,17 @@ server processing time; deterministic given a seed.  Bandwidths are in
 megabits/s at the API surface (``mbps``), bytes/s inside.  Host numpy,
 float64, exactly as the reference.
 
-Bandwidth is the constant rate times ``jitter``, a per-second factor
-drawn from ``default_rng((seed, second))`` (the reference's "pcg" mode).
-The reference's bandwidth traces (``trace=``) and its
-``jitter_mode="counter"``, which takes its bits from JAX's threefry
-generator, are not ported yet (ROADMAP A.7): both raise.
+Bandwidth can vary with time two ways, composable:
+
+  * ``jitter`` — a per-second factor drawn from ``default_rng((seed,
+    second))`` (the reference's "pcg" mode);
+  * ``trace`` — a ``net.traces.BandwidthTrace`` (piecewise-constant replay
+    of a cellular or WiFi profile); when set it replaces ``bandwidth_bps``
+    as the base rate and jitter multiplies on top.
+
+The reference's ``jitter_mode="counter"`` takes its bits from JAX's
+threefry generator so that its compiled round loop sees the same channel;
+it comes with that loop (ROADMAP A.9) and raises here.
 
 ``transmit`` queues one transfer; ``upload_batch`` a whole round in array
 order (the wire only: transmission-complete times), which is what the edge
@@ -42,7 +48,7 @@ class Uplink:
     jitter: float = 0.0  # relative bandwidth jitter
     seed: int = 0
     jitter_mode: str = "pcg"
-    trace: Optional[object] = None  # bandwidth traces: not ported yet
+    trace: Optional[object] = None  # BandwidthTrace (duck-typed: .bandwidth_at, .mean_bps)
     _busy_until: float = 0.0
     _jit_keys: Optional[np.ndarray] = field(default=None, repr=False)
     _jit_vals: Optional[np.ndarray] = field(default=None, repr=False)
@@ -56,9 +62,8 @@ class Uplink:
     def __post_init__(self):
         if self.jitter_mode == "counter":
             raise NotImplementedError(
-                "jitter_mode='counter' needs JAX's threefry bits; not ported yet (ROADMAP A.7)")
-        if self.trace is not None:
-            raise NotImplementedError("bandwidth traces are not ported yet (ROADMAP A.7)")
+                "jitter_mode='counter' needs JAX's threefry bits; it comes with the compiled"
+                " round loop (ROADMAP A.9; listed under A.7 before)")
         if self.jitter_mode != "pcg":
             raise ValueError(f"jitter_mode must be 'pcg' or 'counter', got {self.jitter_mode!r}")
         self._jit_keys = np.zeros(0, dtype=np.int64)
@@ -87,10 +92,16 @@ class Uplink:
     def bandwidth_at(self, t) -> np.ndarray:
         """Vectorized instantaneous bandwidth (bytes/s) at times ``t``."""
         t = np.asarray(t, dtype=np.float64)
-        base = np.full(t.shape, self.bandwidth_bps)
+        base = (np.asarray(self.trace.bandwidth_at(t), dtype=np.float64)
+                if self.trace is not None
+                else np.full(t.shape, self.bandwidth_bps))
         if self.jitter > 0:
             base = base * self._jitter_factors(t.astype(np.int64))
         return base
+
+    @property
+    def _varying(self) -> bool:
+        return self.jitter > 0 or self.trace is not None
 
     def current_bandwidth(self, t: float) -> float:
         return float(self.bandwidth_at(np.asarray([t]))[0])
@@ -127,7 +138,7 @@ class Uplink:
         if payloads.size == 0:
             self.last_starts = np.zeros(0, dtype=np.float64)
             return np.zeros(0, dtype=np.float64)
-        if self.jitter <= 0:
+        if not self._varying:
             tx = payloads / self.bandwidth_bps
             end_tx = self._lindley(tx, subs)
         else:

@@ -1,8 +1,7 @@
 """The edge fabric: cells x replicas topology behind the serving engines
 (port of ``repro.net.fabric``; host numpy, copied).  Cell uplinks are
-constant or "pcg"-jittered: bandwidth traces are not ported yet
-(ROADMAP A.7), nor is the per-row detail the reference collects for its
-frame tracer (telemetry, ROADMAP A.10).
+constant, "pcg"-jittered or trace-driven; the per-row detail the reference
+collects for its frame tracer is not ported yet (telemetry, ROADMAP A.10).
 
 ``core/netsim.py`` models ONE uplink feeding ONE implicit server — the
 paper's single-phone testbed.  Real edge deployments are a topology: many
@@ -132,8 +131,10 @@ class EdgeFabric:
     def stream_bandwidth(self) -> np.ndarray:
         """(S,) nominal uplink rate of each stream's cell — the optimistic
         full-link prior the fleet's EWMA estimators start from, and the
-        scheduler's cost normalizer."""
-        bw = np.asarray([c.uplink.bandwidth_bps for c in self.cells])
+        scheduler's cost normalizer.  Trace-driven cells use the trace's
+        time-weighted mean."""
+        bw = np.asarray([c.uplink.trace.mean_bps if c.uplink.trace is not None
+                         else c.uplink.bandwidth_bps for c in self.cells])
         return bw[self.cell_of]
 
     def true_bandwidth(self, t: float) -> np.ndarray:
@@ -214,13 +215,18 @@ class EdgeFabric:
     def build(cls, *, n_streams: int, n_cells: int = 1, n_replicas: int = 1,
               bandwidth_bps: float = 1e6, latency: float = 0.05,
               server_time: float = 0.037, placement: str = "round_robin",
-              jitter: float = 0.0, seed: int = 0,
+              jitter: float = 0.0, seed: int = 0, traces=None,
               serial_replicas: bool = True, batching=None) -> "EdgeFabric":
-        """Convenience constructor: C homogeneous cells in front of K serial
-        replicas (optionally continuous-batching ones).  Cell c gets seed
-        ``seed + c`` so jittered cells decorrelate."""
+        """Convenience constructor: C homogeneous cells (optionally each
+        replaying its own bandwidth trace) in front of K serial replicas
+        (optionally continuous-batching ones).  Cell c gets seed ``seed + c``
+        so jittered cells decorrelate."""
+        traces = list(traces) if traces is not None else [None] * n_cells
+        if len(traces) != n_cells:
+            raise ValueError("need one trace (or None) per cell")
         ups = [Uplink(bandwidth_bps=bandwidth_bps, latency=latency,
-                      server_time=server_time, jitter=jitter, seed=seed + c)
+                      server_time=server_time, jitter=jitter, seed=seed + c,
+                      trace=traces[c])
                for c in range(n_cells)]
         pool = ReplicaPool(n_replicas, server_time, serial=serial_replicas,
                            batching=batching)

@@ -1,5 +1,6 @@
 """The offload decision plane (port of ``repro.policy``): the
-single-stream ``PolicyRunner`` and the batched fleet ``FleetRunner``.
+single-stream ``PolicyRunner``, the batched fleet ``FleetRunner`` and the
+offline §V evaluation ``replay_trace``.
 
 Importing the package registers the built-in policies.
 """
@@ -15,6 +16,7 @@ from repro_torch.policy.policies import (
     ThresholdPolicy,
 )
 from repro_torch.policy.registry import available_policies, make_policy, register, resolve_policies
+from repro_torch.policy.replay import ReplayResult, replay_trace
 from repro_torch.policy.runner import BandwidthEstimator, PolicyRunner
 from repro_torch.policy.types import ActionTable, Env, EnvBatch, Frame, Plan, PlanBatch, plan_from_chain
 
@@ -40,6 +42,8 @@ __all__ = [
     "GreedyRatePolicy",
     "PolicyRunner",
     "BandwidthEstimator",
+    "replay_trace",
+    "ReplayResult",
     "cbo_plan",
     "optimal_schedule",
     "Frame",

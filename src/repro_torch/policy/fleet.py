@@ -23,8 +23,7 @@ over ``_plan`` otherwise), then applies consume/observe as segment
 operations.  Per-stream and batched paths are interchangeable: the fuzz
 tests assert ``plan_all`` reproduces looped ``plan`` for every registered
 policy.  The reference's compiled planner (``backend="jax"``) has no
-counterpart yet (ROADMAP A.9), nor have split action tables (A.7) or the
-phase profiler (A.10).
+counterpart yet (ROADMAP A.9), nor has its phase profiler (A.10).
 """
 from __future__ import annotations
 
@@ -269,7 +268,8 @@ class FleetRunner:
     def __init__(self, policies: Sequence, *, resolutions: tuple, acc_server: tuple,
                  deadline: float, latency: float, server_time: float, size_of,
                  bw_init: float | np.ndarray = 1e6, bw_alpha: float = 0.3,
-                 cell_id: np.ndarray | None = None, backend: str = "numpy"):
+                 cell_id: np.ndarray | None = None, backend: str = "numpy",
+                 actions: ActionTable | None = None):
         if backend != "numpy":
             raise NotImplementedError(
                 f"backend={backend!r}: only the numpy planner is ported (ROADMAP A.9)")
@@ -288,11 +288,20 @@ class FleetRunner:
         self.occupancy = 1.0
         self.queue_depth = 0.0
         # the action -> bytes table: one source of truth for planner-assumed
-        # and engine-transmitted payloads
-        self.action_table = ActionTable.frames_only(
-            sizes=payload_sizes(size_of, np.asarray(self.resolutions)),
-            acc=np.asarray(self.acc_server, dtype=np.float64))
-        self.sizes = self.action_table.sizes
+        # and engine-transmitted payloads.  With no split actions it is the
+        # (m,) resolution grid and ``self.actions`` stays None, so every
+        # frame-only code path, and its pinned snapshots, is untouched.
+        if actions is None:
+            actions = ActionTable.frames_only(
+                sizes=payload_sizes(size_of, np.asarray(self.resolutions)),
+                acc=np.asarray(self.acc_server, dtype=np.float64))
+        if actions.n_frame_actions != len(self.resolutions):
+            raise ValueError(
+                f"action table has {actions.n_frame_actions} frame actions "
+                f"but {len(self.resolutions)} resolutions")
+        self.action_table = actions
+        self.actions = actions if actions.has_splits else None
+        self.sizes = actions.sizes[:actions.n_frame_actions]
         self.bw_alpha = float(bw_alpha)
         # under an edge fabric, ``bw_init`` is the (S,) per-cell prior and
         # each stream's EWMA tracks its own cell's uplink from then on
@@ -317,7 +326,8 @@ class FleetRunner:
                         server_time=self.server_time, deadline=self.deadline,
                         acc_server=self.acc_server, sizes=self.sizes,
                         cell_id=self.state.cell_id,
-                        occupancy=self.occupancy, queue_depth=self.queue_depth)
+                        occupancy=self.occupancy, queue_depth=self.queue_depth,
+                        actions=self.actions)
 
     # -- control-plane ops (all batched) --------------------------------- #
 
@@ -344,7 +354,7 @@ class FleetRunner:
             batch.scatter(sel, pb)
         batch.sort_offloads()
         batch.planned = active.copy()
-        return batch
+        return batch.annotate_actions(self.actions)
 
     def consume(self, batch: PlanBatch) -> int:
         """Planned offloads left the device; one-shot streams clear fully."""

@@ -9,9 +9,10 @@ dominated states (later AND no better) are pruned.  The frontier is a
 struct-of-arrays and schedules are rebuilt through integer parent indices.
 Candidate order and float accumulation are the reference's, so ties break
 the same way and the returned schedule is the same, bit for bit.
-``cbo_plan_many`` runs S such DPs at once over a ``FleetState``.  Only the
-frame actions are ported: a column is a resolution, its round trip the
-scalar server time plus latency (split actions: ROADMAP A.7).
+``cbo_plan_many`` runs S such DPs at once over a ``FleetState``.  A
+column is a frame resolution or, with ``env.actions``, any action of the
+grid (frames, then feature cuts, each with its own device-prefix time and
+suffix-scaled round trip).
 """
 from __future__ import annotations
 
@@ -22,6 +23,32 @@ import numpy as np
 from repro_torch.policy.types import Env, Frame, Plan, PlanBatch, plan_from_chain
 
 _EPS = 1e-12
+
+
+def _action_vectors(env):
+    """Per-action planner columns: (sizes, rtt, t_dev, acc, m_frame).
+
+    Frame-only (``env.actions is None``): ``sizes`` is None (callers use
+    their legacy payload source), rtt is the scalar server+latency
+    broadcast over the m resolutions, device time is zero.  With an
+    ``ActionTable`` the columns are actions — frames first (action index ==
+    resolution index), splits after, with per-action rtt (suffix-scaled
+    server time) and device-prefix seconds.  For a degenerate table the
+    extra vectors are all-zero / all-equal, and ``x + 0.0`` / ``t * 1.0``
+    keep every float bit-identical to the frame-only path.
+    ``m_frame`` is the frame-action count — plan defaults (r° = m-1) stay
+    on the top *resolution*, never a split action.
+    """
+    if env.actions is None:
+        acc = np.asarray(env.acc_server, dtype=np.float64)
+        m = len(acc)
+        return None, np.full(m, env.server_time + env.latency), np.zeros(m), acc, m
+    act = env.actions
+    return (np.asarray(act.sizes, dtype=np.float64),
+            act.rtt(env.server_time, env.latency),
+            np.asarray(act.t_dev, dtype=np.float64),
+            np.asarray(act.acc, dtype=np.float64),
+            act.n_frame_actions)
 
 
 def _soa(frames: Sequence[Frame]):
@@ -100,20 +127,26 @@ def cbo_plan(frames: Sequence[Frame], env: Env, *, now: float = 0.0) -> Plan:
     "keep local" carries a state over unchanged.  Returns theta = max
     confidence among planned offloads and r° selected by frame index
     (see ``plan_from_chain``).
+
+    With ``env.actions`` set, columns are the full action grid (frames ∪
+    feature cuts): a split column's upload starts no earlier than
+    ``arrival + t_dev`` (device prefix) and pays a suffix-scaled rtt.
     """
-    m = len(env.acc_server)
-    if len(frames) == 0:
-        return plan_from_chain([], frames, 0.0, m)
+    k = len(frames)
+    if k == 0:
+        return plan_from_chain([], frames, 0.0, len(env.acc_server))
     arr, conf, sizes = _soa(frames)
     order = np.argsort(-conf, kind="stable")
-    acc = np.asarray(env.acc_server, dtype=np.float64)
-    rtt = env.server_time + env.latency
-    tx = sizes / env.bandwidth  # (k, m)
-    # static feasibility: even an idle uplink cannot make a transmission
-    # with tx > deadline - rtt land in time, and dA <= 0 never helps —
-    # drop those (frame, resolution) pairs
-    dA_all = acc[None, :] - conf[:, None]  # (k, m)
-    static = (tx <= env.deadline - rtt) & (dA_all > 0)
+    act_sizes, rtt, t_dev, acc, m = _action_vectors(env)
+    if act_sizes is None:
+        tx = sizes / env.bandwidth  # (k, m) from per-frame sizes
+    else:
+        tx = np.broadcast_to(act_sizes / env.bandwidth, (k, len(act_sizes)))
+    # static feasibility: even an idle uplink (start = arrival + t_dev)
+    # cannot make a transmission with t_dev + tx > deadline - rtt land in
+    # time, and dA <= 0 never helps — drop those (frame, action) pairs
+    dA_all = acc[None, :] - conf[:, None]  # (k, A)
+    static = (tx <= (env.deadline - rtt - t_dev)[None, :]) & (dA_all > 0)
 
     pool = _NodePool()
     f_t = np.asarray([now])
@@ -130,12 +163,13 @@ def cbo_plan(frames: Sequence[Frame], env: Env, *, now: float = 0.0) -> Plan:
         # is strictly ascending in t, so only the last such state's
         # expansions can survive pruning — expand from it alone.  (Survivor
         # set, and hence the schedule, is provably identical to expanding
-        # them all.)
+        # them all.  With device time, arrival <= arrival + t_dev for every
+        # column, so collapsing on the raw arrival stays conservative.)
         lo = max(int(np.searchsorted(f_t, arr[j], side="right")) - 1, 0)
         dA = dA_all[j, cols]
-        start = np.maximum(f_t[lo:, None], arr[j])
+        start = np.maximum(f_t[lo:, None], arr[j] + t_dev[cols][None, :])
         t_new = start + tx[j, cols][None, :]  # (P - lo, C)
-        good = t_new + rtt <= arr[j] + env.deadline
+        good = t_new + rtt[cols][None, :] <= arr[j] + env.deadline
         if good.all():  # fast path: every (state, resolution) pair lands
             new_t = t_new.ravel()
             new_gain = (f_gain[lo:, None] + dA[None, :]).ravel()
@@ -336,14 +370,12 @@ def cbo_plan_many(state, env, now: np.ndarray):
     schedules against the per-stream planner.
     """
     from repro_torch.policy.fleet import ragged_rank
-
     S = state.n_streams
     arr, conf, sid, offs = state.arrival, state.conf, state.stream_id, state.offsets
     lens = np.diff(offs)
     now = np.asarray(now, dtype=np.float64)
-    acc = np.asarray(env.acc_server, dtype=np.float64)
-    m = len(acc)
-    rtt = env.server_time + env.latency
+    act_sizes, rtt, t_dev, acc, m = _action_vectors(env)
+    sizes_a = env.sizes if act_sizes is None else act_sizes  # (A,)
     base_acc = np.bincount(sid, weights=conf, minlength=S) if len(arr) else np.zeros(S)
     out_empty = PlanBatch.empty(S, m)
     out_empty.n_frames = lens.copy()
@@ -352,9 +384,9 @@ def cbo_plan_many(state, env, now: np.ndarray):
     if len(arr) == 0:
         return out_empty
 
-    tx_sm = env.sizes[None, :] / env.bandwidth[:, None]  # (S, m)
-    dA = acc[None, :] - conf[:, None]  # (T, m)
-    static = (tx_sm[sid] <= env.deadline - rtt) & (dA > 0)
+    tx_sm = sizes_a[None, :] / env.bandwidth[:, None]  # (S, A)
+    dA = acc[None, :] - conf[:, None]  # (T, A)
+    static = (tx_sm[sid] <= (env.deadline - rtt - t_dev)[None, :]) & (dA > 0)
 
     # per-stream confidence-descending stable order (== argsort(-conf))
     sort_idx = np.lexsort((-conf, sid))
@@ -403,7 +435,7 @@ def cbo_plan_many(state, env, now: np.ndarray):
         # materialized; offset rounding can only over-include, and the
         # exact ``good`` check below re-filters the stragglers.
         cs, cc = np.nonzero(frame_static)  # (stream, col) pairs, s-major
-        hi = arr_d[cs] + (env.deadline - rtt) - tx_sm[cs, cc]
+        hi = arr_d[cs] + (env.deadline - rtt[cc]) - tx_sm[cs, cc]
         fkey = f_t + f_seg * K
         cut = np.searchsorted(fkey, hi + cs * K, side="right")
         first = f_offs[cs] + lo[cs]
@@ -416,9 +448,9 @@ def cbo_plan_many(state, env, now: np.ndarray):
         # on the original candidate order
         o = np.lexsort((col_rep, state_rep))
         state_rep, seg_rep, col_rep = state_rep[o], seg_rep[o], col_rep[o]
-        start = np.maximum(f_t[state_rep], arr_d[seg_rep])
+        start = np.maximum(f_t[state_rep], arr_d[seg_rep] + t_dev[col_rep])
         t_new = start + tx_sm[seg_rep, col_rep]
-        good = t_new + rtt <= arr_d[seg_rep] + env.deadline
+        good = t_new + rtt[col_rep] <= arr_d[seg_rep] + env.deadline
         e_t = t_new[good]
         e_parent = state_rep[good]
         e_seg = seg_rep[good]
@@ -483,7 +515,7 @@ def cbo_plan_many(state, env, now: np.ndarray):
     return PlanBatch.from_offloads(
         S, m, off_stream=off_s, off_pos=off_p, off_res=off_r,
         off_conf=conf[offs[:-1][off_s] + off_p], total_gain=best_gain,
-        base_acc=base_acc, n_frames=lens)
+        base_acc=base_acc, n_frames=lens).annotate_actions(env.actions)
 
 
 def optimal_schedule(frames: Sequence[Frame], env: Env) -> Plan:

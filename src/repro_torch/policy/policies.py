@@ -129,7 +129,11 @@ class LocalPolicy(OneShotPolicy):
 @register("server")
 class ServerPolicy(OneShotPolicy):
     """Offload every frame at the highest resolution whose transmission fits
-    both the frame interval and the per-frame deadline budget."""
+    both the frame interval and the per-frame deadline budget; frames are
+    sent even if queueing will make them late (there is no local fallback
+    to save them for)."""
+
+    transmit_late = True
 
     def __init__(self, frame_interval: float = 1.0 / 30.0,
                  max_backlog: int | None = 64):

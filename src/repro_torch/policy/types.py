@@ -5,9 +5,9 @@ deadline regime at that instant) and answers with a ``Plan``.
 ``EnvBatch`` / ``PlanBatch`` are their struct-of-arrays fleet
 counterparts: one env snapshot and one plan for S streams at once, the
 vocabulary of the batched ``plan_many`` path (``policy/fleet.py``).
-``ActionTable`` is the planner's action grid; only its frame actions
-(one per resolution) are ported: split actions wait for ``split/``
-(ROADMAP A.7).  Host numpy, as in the reference.
+``ActionTable`` is the planner's action grid: frame uploads at each
+resolution and, from ``split/``, feature uploads at each cut.  Host numpy,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -27,29 +27,69 @@ class Frame:
 
 @dataclass(frozen=True)
 class ActionTable:
-    """The planner's action grid.  Frame actions occupy indices ``[0, m)``
-    with action index == resolution index; ``t_dev == 0`` and
-    ``srv_frac == 1`` for them, so the engine's ``+ t_dev`` and
-    ``* srv_frac`` are float no-ops.  Only ``frames_only`` tables exist in
-    the port (split actions: ROADMAP A.7)."""
+    """The planner's action grid: {frame@res r} ∪ {features@cut k}.
 
-    kind: np.ndarray  # (A,) int8 — 0 = frame upload
+    Frame actions occupy indices ``[0, m)`` with action index ==
+    resolution index, so a consumer that treats a plan's ``resolution`` as
+    an index into ``cfg.resolutions`` keeps working, and a table with no
+    split actions is the (m,) payload vector.  Split actions (``kind ==
+    1``) follow: the device runs the first k blocks (``t_dev`` seconds,
+    from ``split/costs.py``), ships int8 features (``sizes`` bytes), and the
+    server runs the suffix (``srv_frac`` x its current full-model time
+    estimate).  ``res`` is the resolution index the action's prediction is
+    evaluated at (full resolution for splits); ``cut`` is the catalog cut
+    id (-1 for frames).
+
+    Invariants (checked): frame actions first with ``res == arange(m)``,
+    ``t_dev == 0``, ``srv_frac == 1`` and ``cut == -1``; those identities
+    make a degenerate table reproduce the frame-only system bit for bit
+    (``x + 0.0`` and ``t * 1.0`` are float no-ops).
+    """
+
+    kind: np.ndarray  # (A,) int8 — 0 = frame upload, 1 = feature (split)
     res: np.ndarray  # (A,) int — evaluation resolution index
     cut: np.ndarray  # (A,) int — catalog cut id; -1 for frame actions
     sizes: np.ndarray  # (A,) float64 — payload bytes on the wire
     acc: np.ndarray  # (A,) float64 — server-side accuracy if offloaded
     t_dev: np.ndarray  # (A,) float64 — device prefix seconds (0 for frames)
     srv_frac: np.ndarray  # (A,) float64 — fraction of server_time (1 for frames)
+    names: tuple = ()  # optional per-split-action labels
+
+    def __post_init__(self):
+        m = self.n_frame_actions
+        if not (m >= 1 and np.array_equal(self.kind[:m], np.zeros(m, dtype=np.int8))
+                and np.array_equal(self.res[:m], np.arange(m))
+                and not np.any(self.t_dev[:m]) and np.all(self.srv_frac[:m] == 1.0)
+                and np.all(self.cut[:m] == -1)):
+            raise ValueError("ActionTable: frame actions must come first, with res == arange(m),"
+                             " t_dev == 0, srv_frac == 1 and cut == -1")
+
+    @property
+    def n_actions(self) -> int:
+        return len(self.sizes)
+
+    @property
+    def n_frame_actions(self) -> int:
+        return int(np.sum(self.kind == 0))
+
+    @property
+    def has_splits(self) -> bool:
+        return self.n_actions > self.n_frame_actions
 
     @classmethod
     def frames_only(cls, *, sizes, acc) -> "ActionTable":
-        """The (m,) resolution grid."""
+        """The degenerate table: the (m,) resolution grid."""
         m = len(sizes)
         return cls(kind=np.zeros(m, dtype=np.int8), res=np.arange(m),
                    cut=np.full(m, -1, dtype=np.int64),
                    sizes=np.asarray(sizes, dtype=np.float64),
                    acc=np.asarray(acc, dtype=np.float64),
                    t_dev=np.zeros(m), srv_frac=np.ones(m))
+
+    def rtt(self, server_time: float, latency: float) -> np.ndarray:
+        """(A,) per-action server + latency time: split suffixes scale the
+        current server-time estimate, frames pay it in full."""
+        return server_time * self.srv_frac + latency
 
 
 @dataclass(frozen=True)
@@ -59,6 +99,7 @@ class Env:
     server_time: float  # T^o (s)
     deadline: float  # T (s), per-frame window
     acc_server: tuple[float, ...]  # A^o_r per resolution (ascending res)
+    actions: Optional[ActionTable] = None  # split-aware grid; None = frame-only
 
 
 @dataclass
@@ -106,6 +147,7 @@ class EnvBatch:
     cell_id: Optional[np.ndarray] = None  # (S,) int cell per stream; None = one cell
     occupancy: float = 1.0  # slow-tier batch-occupancy EWMA (1.0 = serial)
     queue_depth: float = 0.0  # mean pending replica work (s) at plan time
+    actions: Optional[ActionTable] = None  # split-aware grid; None = frame-only
 
     @property
     def n_streams(self) -> int:
@@ -118,14 +160,15 @@ class EnvBatch:
     def for_stream(self, s: int) -> Env:
         return Env(bandwidth=float(self.bandwidth[s]), latency=self.latency,
                    server_time=self.server_time, deadline=self.deadline,
-                   acc_server=self.acc_server)
+                   acc_server=self.acc_server, actions=self.actions)
 
     def subset(self, streams: np.ndarray) -> "EnvBatch":
         return EnvBatch(bandwidth=self.bandwidth[streams], latency=self.latency,
                         server_time=self.server_time, deadline=self.deadline,
                         acc_server=self.acc_server, sizes=self.sizes,
                         cell_id=None if self.cell_id is None else self.cell_id[streams],
-                        occupancy=self.occupancy, queue_depth=self.queue_depth)
+                        occupancy=self.occupancy, queue_depth=self.queue_depth,
+                        actions=self.actions)
 
 
 @dataclass
@@ -146,7 +189,7 @@ class PlanBatch:
     off_pos: np.ndarray  # (E,) int — position within the stream's backlog
     off_res: np.ndarray  # (E,) int — action index (== resolution index for frames)
     planned: np.ndarray = None  # (S,) bool — streams this batch planned for
-    off_kind: np.ndarray = None  # (E,) int8 — 0 = frame (from ActionTable)
+    off_kind: np.ndarray = None  # (E,) int8 — 0 frame, 1 features (from ActionTable)
     off_cut: np.ndarray = None  # (E,) int — catalog cut id; -1 for frame actions
 
     def __post_init__(self):
@@ -157,6 +200,14 @@ class PlanBatch:
 
     def __len__(self) -> int:
         return len(self.theta)
+
+    def annotate_actions(self, actions: Optional[ActionTable]) -> "PlanBatch":
+        """Fill the (kind, cut) columns from the action table ``off_res``
+        indexes into.  A ``None`` or degenerate table is all frames."""
+        if actions is not None and len(self.off_res):
+            self.off_kind = actions.kind[self.off_res]
+            self.off_cut = actions.cut[self.off_res]
+        return self
 
     @classmethod
     def empty(cls, n_streams: int, m: int) -> "PlanBatch":

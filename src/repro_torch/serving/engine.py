@@ -58,6 +58,12 @@ class ServeConfig:
     size_of: Callable = png_size_model  # resolution (scalar or array) -> upload bytes
     use_fused: bool = False  # fused calibrate+gate kernel in the fast pass
     platt_ab: Optional[tuple] = None  # (a, b) Platt coefficients for use_fused
+    # split-computation action table (``policy.types.ActionTable``, built by
+    # ``split.build_action_table``): adds features@cut actions to the
+    # planner's grid.  None or a frames-only table keeps the paper's
+    # frame-only action space bit for bit.  Read by ``MultiStreamServer``;
+    # ``CascadeServer`` (the single-stream paper loop) stays frame-only.
+    actions: Optional[object] = None
 
 
 class CascadeServer:
@@ -205,7 +211,7 @@ class MultiStreamServer:
             resolutions=cfg.resolutions, acc_server=cfg.acc_server,
             deadline=cfg.deadline, latency=fabric.latency,
             server_time=fabric.server_time, size_of=cfg.size_of,
-            bw_init=self._stream_bw, cell_id=fabric.cell_of,
+            bw_init=self._stream_bw, cell_id=fabric.cell_of, actions=cfg.actions,
         )
         self.metrics = AggregateMetrics.for_streams(n_streams, uplink=self.uplink,
                                                     fabric=fabric)
