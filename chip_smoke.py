@@ -47,9 +47,18 @@ without them it exits non-zero before printing any result.  Phases:
      of the 5-resolution ladder); (c) ``MultiStreamServer`` with split
      offloading (a DeiT-B cut catalog as feature actions) over an LTE and
      a WiFi trace-driven cell, and the same fleet with frames only.
+     3f. path 6: (a) path 3's fleet served again with the telemetry off and
+     on (``Telemetry``: recorder, frame tracer, phase profiler): the same
+     metrics, the recorder's last counters equal to the metrics', one traced
+     lifecycle per escalation, the Chrome trace exported under ``build/``;
+     (b) ``FleetRunner(backend="torch")`` planning fleets of 1,024 to
+     1,048,576 streams on the card against the numpy ``FleetRunner`` on the
+     host (five policies, and cbo over the DeiT-B cut catalog): the same
+     decisions, no frontier overflow, host and device times, peak memory.
      Each path's kernel launch counts are set to 0 just before its run and
      read just after; then the same stream (path 4: 8 more decode steps;
-     path 5: the split fleet) runs again under ``torch.profiler`` for the
+     path 5: the split fleet; path 6: the telemetry run, one cbo planning
+     call at 131,072 streams) runs again under ``torch.profiler`` for the
      device's idle share;
   4. one batch's fast pass on the card against the same pass on the CPU,
      (4b) DeiT-B's logits on two frames likewise, TF32 off, (4c) the
@@ -137,6 +146,11 @@ REPLAY_NET = dict(bw_mbps=5.0, latency=0.05, deadline=0.2)  # path 5 (b)
 FAST_TIME = 0.020  # paper Table III: the fast tier's seconds a frame (the replay's local tier)
 # path 5 (c): bench_split.py's regime, the slow tier nearly as slow as the deadline
 SPLIT = dict(server_time=0.16, deadline=0.2, latency=0.03, max_cuts=4)
+# path 6 (b): tests/test_fleet_jax.py's planner workload, planned at fleet sizes up to 2^20
+PLAN = dict(max_backlog=12, resolutions=(4, 8), acc_server=(0.7, 0.99), deadline=0.2, latency=0.05,
+            server_time=0.037)
+PLAN_SIZES = (1024, 16384, 131072, 1048576)
+THETA_ATOL = 1e-6  # tests/_diff.py: a float32 copy of a float64 confidence
 
 
 def check(cond: bool, msg: str) -> None:
@@ -732,7 +746,8 @@ def multistream_phase(fast, deit, frames, labels, counted, flash_per_call):
     ``counted`` maps each kernel's name to its wrapper; every count is set
     to 0 just before the sweep and read after it and after the serving run
     (``flash_per_call`` attention launches per slow-tier call).  Then the
-    same streams run again under one trace of the card."""
+    same streams run again under one trace of the card.  Returns the
+    launches and the fabric factory (path 6 serves the same fleet again)."""
     import torch
 
     from repro_torch.core.netsim import Uplink, mbps
@@ -824,7 +839,7 @@ def multistream_phase(fast, deit, frames, labels, counted, flash_per_call):
     print(f"  traced repeat: device busy {busy_ms} ms of {traced_ms:.3f} ms wall"
           f" ({metrics.n_frames / traced_ms * 1e3:.2f} frames/s); device idle share {idle};"
           f" same summary as the counted run: {box[0].summary() == metrics.summary()}")
-    return launches
+    return launches, fabric
 
 
 def decode_bound(B, S, KH, G, D, q_bytes):
@@ -1343,6 +1358,207 @@ def split_fleet_card_vs_cpu() -> None:
           json.dumps(mc), json.dumps(sc))
 
 
+def telemetry_phase(fast, deit, frames, labels, fabric, counted, flash_per_call):
+    """Phase 3f (a), path 6: path 3's fleet served again with the
+    telemetry off, then on (``Telemetry(record, trace, profile)``), on
+    fresh fabrics from path 3's factory (the f(batch) fit as the replicas'
+    curve).  ``counted`` maps each kernel's name to its wrapper; every
+    count is set to 0 just before the telemetry run and read just after.
+    Then the telemetry run again under one trace of the card.  Returns the
+    launches."""
+    import torch
+
+    from repro_torch.obs import Telemetry, relock_lags
+    from repro_torch.serving.engine import MultiStreamServer, ServeConfig
+
+    S = frames.shape[0]
+    cfg = ServeConfig(batch_size=BATCH, use_fused=True, platt_ab=PLATT, acc_server=ACC_SERVER)
+    n_rounds = -(-frames.shape[1] // cfg.batch_size)
+
+    def serve(telemetry):
+        fast_t, slow_t = TimedTier(fast, "fast"), TimedTier(deit, "slow")
+        server = MultiStreamServer(cfg, fast_t, slow_t, None, None, n_streams=S, fabric=fabric(),
+                                   policy="cbo", device="cuda", telemetry=telemetry)
+        marks = []
+        server.round_hook = lambda rec: marks.append(time.perf_counter())
+        t0 = time.perf_counter()
+        metrics = server.process_streams(frames, labels)
+        torch.cuda.synchronize()
+        round_ms = np.diff([t0] + marks) * 1e3
+        return server, metrics, slow_t, round_ms
+
+    _, m_off, _, ms_off = serve(None)
+    for fn in counted.values():
+        fn.launches = 0
+    tel = Telemetry(record=True, trace=True, profile=True)
+    server, m_on, slow_t, ms_on = serve(tel)
+    launches = {name: fn.launches for name, fn in counted.items()}
+
+    n_slow = len(slow_t.events)
+    check(m_on.summary() == m_off.summary(), f"path 6 (a): telemetry changed the metrics {m_on.summary()}"
+          f" vs {m_off.summary()}")
+    for k in ("_frames", "_offloaded", "_missed", "_correct"):
+        check(np.array_equal(getattr(m_on, k), getattr(m_off, k)), f"path 6 (a): {k} differs with telemetry")
+    rec, tracer, prof = tel.recorder, tel.tracer, tel.profiler
+    check(rec.n_rounds == n_rounds, f"path 6 (a): recorder holds {rec.n_rounds} rounds, not {n_rounds}")
+    for k, v in (("frames", m_on._frames), ("offloads", m_on._offloaded), ("misses", m_on._missed),
+                 ("correct", m_on._correct)):
+        check(np.array_equal(rec.series(k)[-1], v), f"path 6 (a): recorder's last {k} {rec.series(k)[-1]} vs {v}")
+    check(tracer.n_frames == m_on.n_offloaded + m_on.n_deadline_miss,
+          f"path 6 (a): tracer holds {tracer.n_frames} escalations, metrics {m_on.n_offloaded}"
+          f" + {m_on.n_deadline_miss}")
+    check(sum(f["ok"] for f in tracer.frames) == m_on.n_offloaded, "path 6 (a): tracer's landed escalations")
+    trace = tracer.chrome_trace()
+    path = ROOT / "build" / "path6_chrome_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    tracer.export_chrome_trace(str(path))
+    with open(path) as fh:
+        n_events = len(json.load(fh)["traceEvents"])
+    check(n_events == len(trace["traceEvents"]) == 3 + 7 * tracer.n_frames,
+          f"path 6 (a): Chrome trace holds {n_events} events")
+    check({"plan", "serve", "transmit", "fold"} <= set(prof.totals), f"path 6 (a): profiler phases {prof.totals}")
+    check(launches["calib_gate"] == n_rounds, f"path 6 (a): calib_gate launched {launches['calib_gate']} times"
+          f" in {n_rounds} rounds")
+    check(launches["flash_attention"] == flash_per_call * n_slow, f"path 6 (a): flash_attention launched"
+          f" {launches['flash_attention']} times for {n_slow} slow-tier calls")
+    check(launches["int8_matmul"] == 0 and launches["int8_kv_decode"] == 0, f"path 6 (a) launches {launches}")
+    with np.errstate(all="ignore"):
+        lags = relock_lags(rec)
+        summary = rec.summary()
+    print(f"path 6 on {card_line()}: (a) path 3's fleet ({S} streams x {frames.shape[1]} frames, {n_rounds} rounds,"
+          f" 2 cells x 2 replicas, the f(batch) fit as the replicas' curve) with Telemetry(record, trace, profile):"
+          f" same AggregateMetrics.summary() as with it off: True; launches {launches} ({n_slow} slow-tier calls)")
+    print("  profiler (host wall clock, no synchronize added):", json.dumps(prof.summarize()))
+    print(f"  host ms per round, telemetry off: {' '.join(f'{x:.3f}' for x in ms_off)};"
+          f" on: {' '.join(f'{x:.3f}' for x in ms_on)} (same call)")
+    print(f"  recorder: {rec.n_rounds} rounds, summary {json.dumps(summary)}; relock_lags {lags};"
+          f" tracer: {tracer.n_frames} escalations, miss attribution {json.dumps(tracer.miss_attribution())};"
+          f" Chrome trace {n_events} events in {path.relative_to(ROOT)}")
+    again = MultiStreamServer(cfg, fast, deit, None, None, n_streams=S, fabric=fabric(), policy="cbo",
+                              device="cuda", telemetry=Telemetry(record=True, trace=True, profile=True))
+    box = []
+    busy_ms, traced_ms = traced(lambda: box.append(again.process_streams(frames, labels)), host_ops=False)
+    idle = "not measured" if busy_ms is None else f"{1 - busy_ms / traced_ms:.4f}"
+    print(f"  traced repeat with telemetry: device busy {busy_ms} ms of {traced_ms:.3f} ms wall; device idle"
+          f" share {idle}; same summary as the counted run: {box[0].summary() == m_on.summary()}")
+    return launches
+
+
+def fleet_backlog(S, mb, seed):
+    """``tests/test_fleet_jax.py::fuzz_backlog``: per-stream ascending
+    arrivals on the 1/32 grid (exact in float32), confidences uniform in
+    [0.05, 0.95], bandwidth estimates uniform in [2e5, 1e7] bytes/s, 80 %
+    of the streams active, each planned half a frame after its newest
+    arrival."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, mb + 1, size=S)
+    stream = np.repeat(np.arange(S), lens)
+    t0 = rng.integers(0, 64, size=S) / 32.0
+    pos = np.concatenate([np.arange(n) for n in lens]) if lens.sum() else np.zeros(0)
+    arrival = t0[stream] + pos / 32.0
+    conf = rng.uniform(0.05, 0.95, size=lens.sum())
+    now = t0 + (lens + 0.5) / 32.0
+    bw = rng.uniform(2e5, 1e7, size=S)
+    active = rng.random(S) < 0.8
+    now = np.where(active, now, np.inf)
+    return stream, arrival, conf, now, bw, active
+
+
+def planner_phase() -> list:
+    """Phase 3f (b), path 6: ``FleetRunner(backend="torch")`` planning
+    fleets of 1,024 to 1,048,576 streams on the card against the numpy
+    ``FleetRunner`` on the host, on the same backlogs: the integer fields
+    equal, theta within 1e-6, gains and base accuracies within 1e-4, no
+    frontier overflow or inexact prune.  Prints host ms a call for both,
+    the card's device time a call, streams a second and peak card memory;
+    one traced call at 131,072 streams gives the idle share.  Returns the
+    rows."""
+    import torch
+
+    from repro_torch.configs.deit_b import FULL as DEIT_B
+    from repro_torch.core.netsim import png_size_model
+    from repro_torch.policy.fleet import FleetRunner
+    from repro_torch.policy.registry import make_policy
+    from repro_torch.split import build_action_table, catalog_for
+
+    split = build_action_table(catalog_for(DEIT_B, max_cuts=SPLIT["max_cuts"]), resolutions=PLAN["resolutions"],
+                               size_of=png_size_model, acc_server=PLAN["acc_server"])
+    points = ([("cbo", S) for S in PLAN_SIZES]
+              + [(p, S) for p in ("threshold", "local", "server", "greedy-rate")
+                 for S in (PLAN_SIZES[0], PLAN_SIZES[2])]
+              + [("cbo-split", PLAN_SIZES[0])])
+    print(f"path 6 on {card_line()}: (b) FleetRunner(backend='torch') on the card against the numpy FleetRunner,"
+          f" max_backlog {PLAN['max_backlog']}, resolutions {PLAN['resolutions']}, acc_server {PLAN['acc_server']},"
+          f" deadline {PLAN['deadline']} s, L {PLAN['latency']} s, T^o {PLAN['server_time']} s; split: the DeiT-B cut"
+          f" catalog ({SPLIT['max_cuts']} cuts, {split.n_actions} actions)")
+    rows = []
+    for i, (policy, S) in enumerate(points):
+        name = policy.split("-split")[0]
+        kw = dict(max_backlog=PLAN["max_backlog"], **({"frame_interval": 1.0 / 32.0} if name == "server" else {}))
+        common = {k: PLAN[k] for k in ("resolutions", "acc_server", "deadline", "latency", "server_time")}
+        actions = split if policy.endswith("split") else None
+        stream, arrival, conf, now, bw, active = fleet_backlog(S, PLAN["max_backlog"], 1000 + i)
+        runners = {}
+        for backend in ("numpy", "torch"):
+            r = FleetRunner([make_policy(name, **kw) for _ in range(S)], size_of=png_size_model, bw_init=50e6 / 8,
+                            backend=backend, device="cuda" if backend == "torch" else None, actions=actions, **common)
+            r.observe_frames(stream, arrival, conf)
+            r.bw_est[:] = bw
+            runners[backend] = r
+        # both backends timed alike: one call to warm up, then the min and
+        # mean of 3 (numpy of 1 at 2^20 streams, where a call takes ~15 s)
+        n_calls = 1 if S >= 1 << 20 else 3
+        pn = runners["numpy"].plan_all(now, active)
+        numpy_calls = []
+        for _ in range(n_calls):
+            t0 = time.perf_counter()
+            pn = runners["numpy"].plan_all(now, active)
+            numpy_calls.append((time.perf_counter() - t0) * 1e3)
+        rt = runners["torch"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        pt = rt.plan_all(now, active)  # the first call: CUDA set-up of this shape
+        calls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pt = rt.plan_all(now, active)
+            torch.cuda.synchronize()
+            calls.append((time.perf_counter() - t0) * 1e3)
+        peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+        for k in ("resolution", "n_offloads", "n_frames", "off_stream", "off_pos", "off_res", "off_kind", "planned"):
+            check(np.array_equal(getattr(pn, k), getattr(pt, k)), f"path 6 (b) {policy} S={S}: {k} differs")
+        check(np.abs(pt.theta - pn.theta).max() <= THETA_ATOL, f"path 6 (b) {policy} S={S}: theta")
+        for k in ("total_gain", "base_acc"):
+            check(np.abs(getattr(pt, k) - getattr(pn, k)).max() <= 1e-4, f"path 6 (b) {policy} S={S}: {k}")
+        check(not rt.last_overflow.any() and not rt.last_inexact.any(),
+              f"path 6 (b) {policy} S={S}: overflow {int(rt.last_overflow.sum())}, inexact {int(rt.last_inexact.sum())}")
+        dev_ms, _ = traced(lambda: rt.plan_all(now, active), iters=2)
+        dev_ms = None if dev_ms is None else dev_ms / 2
+        row = dict(policy=policy, streams=S, numpy_ms=min(numpy_calls), numpy_ms_mean=float(np.mean(numpy_calls)),
+                   torch_ms=min(calls), torch_ms_mean=float(np.mean(calls)),
+                   device_ms=dev_ms, peak_gb=peak_gb, offloads=len(pn.off_stream),
+                   features=int((pn.off_kind == 1).sum()))
+        rows.append(row)
+        print(f"  {policy:12s} S={S:8d}: numpy {row['numpy_ms']:10.3f} ms min, {row['numpy_ms_mean']:10.3f} mean of"
+              f" {n_calls} ({S / row['numpy_ms'] * 1e3:12.1f} streams/s);"
+              f" torch {row['torch_ms']:9.3f} ms min, {row['torch_ms_mean']:9.3f} mean of 3"
+              f" ({S / row['torch_ms'] * 1e3:12.1f} streams/s); device {_us(dev_ms)} a call; peak card memory"
+              f" {peak_gb:.3f} GB; offloads {row['offloads']} ({row['features']} feature actions); decisions equal")
+        if policy == "cbo" and S == PLAN_SIZES[2]:
+            busy_ms, wall_ms = traced(lambda: rt.plan_all(now, active), host_ops=False)
+            idle = "not measured" if busy_ms is None else f"{1 - busy_ms / wall_ms:.4f}"
+            print(f"  traced call, cbo at S={S}: device busy {busy_ms} ms of {wall_ms:.3f} ms wall; device idle share"
+                  f" {idle}")
+        if policy == "cbo" and S == PLAN_SIZES[-1]:
+            total, sorts, ranked = traced_kernels(lambda: rt.plan_all(now, active), 1, ("sort", "Sort"), top=8)
+            print(f"  where cbo's device time goes at S={S}: {total} ms a call, {sorts} ms in sort kernels; top"
+                  f" kernels (ms): " + "; ".join(f"{k} {t:.3f}" for k, t in ranked))
+        del runners, rt, pt, pn
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1433,7 +1649,7 @@ def main() -> int:
     ms_labels = data["labels"].reshape(N_STREAMS, STREAM_FRAMES)
     print(f"set-up: {n_ms} frames ({ms_frames.nbytes / 1e6:.0f} MB) {time.perf_counter() - t0:.2f} s")
     warm_up("path 3", fast, deit, data["frames"], n_fast=N_STREAMS * BATCH, n_slow=N_STREAMS * BATCH)
-    launches = multistream_phase(fast, deit, ms_frames, ms_labels,
+    launches, ms_fabric = multistream_phase(fast, deit, ms_frames, ms_labels,
                                  {"calib_gate": cg_kernel.calib_gate,
                                   "flash_attention": fa_kernel.flash_attention,
                                   "int8_matmul": i8_kernel.int8_matmul,
@@ -1455,6 +1671,15 @@ def main() -> int:
                                       "int8_matmul": i8_kernel.int8_matmul,
                                       "int8_kv_decode": kv_kernel.int8_kv_decode}, DEIT_B.n_layers)
     phase_done("3e (path 5)")
+
+    # ---- 3f. path 6: telemetry on path 3's fleet, the planner on the card -- #
+    tel_launches = telemetry_phase(fast, deit, ms_frames, ms_labels, ms_fabric,
+                                   {"calib_gate": cg_kernel.calib_gate,
+                                    "flash_attention": fa_kernel.flash_attention,
+                                    "int8_matmul": i8_kernel.int8_matmul,
+                                    "int8_kv_decode": kv_kernel.int8_kv_decode}, DEIT_B.n_layers)
+    planner_phase()
+    phase_done("3f (path 6)")
 
     # ---- 4. card against CPU ---------------------------------------------- #
     torch.backends.cudnn.allow_tf32 = False
@@ -1504,28 +1729,32 @@ def main() -> int:
     kernels = [dict(name="calib_gate", route="cuda",
                     source="src/repro_torch/kernels/fused_calib_gate/csrc/calib_gate.cu",
                     replaces="src/repro/kernels/fused_calib_gate/kernel.py:48",
-                    launches=launches["calib_gate"] + eval_launches["calib_gate"], max_abs_err=cg_err,
+                    launches=launches["calib_gate"] + eval_launches["calib_gate"] + tel_launches["calib_gate"],
+                    max_abs_err=cg_err,
                     ms=cg_row["ms"], plain_ms=cg_row["plain_ms"],
                     bound_ms=cg_row["bound_ms"], bound_by=cg_row["bound_by"],
                     library_ms=None),
                dict(name="flash_attention", route="cuda",
                     source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention/kernel.py:62",
-                    launches=launches["flash_attention"] + eval_launches["flash_attention"], max_abs_err=fa_err,
+                    launches=(launches["flash_attention"] + eval_launches["flash_attention"]
+                              + tel_launches["flash_attention"]), max_abs_err=fa_err,
                     ms=fa_row["ms"], plain_ms=fa_row["plain_ms"],
                     bound_ms=fa_row["bound_ms"], bound_by=fa_row["bound_by"],
                     library_ms=fa_row["library_ms"]),
                dict(name="int8_matmul", route="cuda",
                     source="src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",
                     replaces="src/repro/kernels/int8_matmul/kernel.py:43",
-                    launches=launches["int8_matmul"] + eval_launches["int8_matmul"], max_abs_err=i8_err,
+                    launches=launches["int8_matmul"] + eval_launches["int8_matmul"] + tel_launches["int8_matmul"],
+                    max_abs_err=i8_err,
                     ms=i8_row["ms"], plain_ms=i8_row["plain_ms"],
                     bound_ms=i8_row["bound_ms"], bound_by=i8_row["bound_by"],
                     library_ms=i8_row["library_ms"]),
                dict(name="int8_kv_decode", route="cuda",
                     source="src/repro_torch/kernels/int8_kv_decode/csrc/int8_kv_decode.cu",
                     replaces="src/repro/kernels/int8_kv_decode/kernel.py:59",
-                    launches=lm_launches["int8_kv_decode"] + eval_launches["int8_kv_decode"], max_abs_err=kv_err,
+                    launches=lm_launches["int8_kv_decode"] + eval_launches["int8_kv_decode"]
+                    + tel_launches["int8_kv_decode"], max_abs_err=kv_err,
                     ms=kv_row["ms"], plain_ms=kv_row["plain_ms"],
                     bound_ms=kv_row["bound_ms"], bound_by=kv_row["bound_by"],
                     library_ms=kv_row["library_ms"])]

@@ -1,7 +1,7 @@
 """The edge fabric: cells x replicas topology behind the serving engines
 (port of ``repro.net.fabric``; host numpy, copied).  Cell uplinks are
-constant, "pcg"-jittered or trace-driven; the per-row detail the reference
-collects for its frame tracer is not ported yet (telemetry, ROADMAP A.10).
+constant, "pcg"-jittered or trace-driven; ``transmit(collect_detail=True)``
+keeps the per-row lifecycle detail the frame tracer (``obs/trace.py``) reads.
 
 ``core/netsim.py`` models ONE uplink feeding ONE implicit server — the
 paper's single-phone testbed.  Real edge deployments are a topology: many
@@ -91,6 +91,9 @@ class EdgeFabric:
         # so estimators can subtract the true service component even on
         # heterogeneous pools
         self.last_service_time = np.zeros(0, dtype=np.float64)
+        # per-row lifecycle detail of the most recent transmit batch when
+        # requested (``transmit(collect_detail=True)``, telemetry tracing)
+        self.last_detail = None
 
     # -- shape ------------------------------------------------------------- #
 
@@ -151,7 +154,8 @@ class EdgeFabric:
 
     # -- data plane --------------------------------------------------------- #
 
-    def transmit(self, stream, payload_bytes, t_submit, *, service_scale=None) -> np.ndarray:
+    def transmit(self, stream, payload_bytes, t_submit, *,
+                 service_scale=None, collect_detail: bool = False) -> np.ndarray:
         """Route one round's escalations: per-cell uplink upload (rows keep
         their scheduler order within each cell), replica placement on the
         upload-completion times, pool service, reply latency.  Returns
@@ -159,24 +163,39 @@ class EdgeFabric:
 
         ``service_scale`` (optional, per-row) scales each job's replica
         service time — split-computation offloads run only the model suffix
-        server-side (``srv_frac``); 1.0 rows are a float no-op."""
+        server-side (``srv_frac``); 1.0 rows are a float no-op.
+
+        ``collect_detail`` additionally stores per-row lifecycle detail in
+        ``self.last_detail`` (upload start/end, replica, batch id, service
+        completion) for the frame tracer; off is the default and costs
+        nothing."""
         stream = np.asarray(stream, dtype=np.int64)
         payloads = np.asarray(payload_bytes, dtype=np.float64)
         subs = np.asarray(t_submit, dtype=np.float64)
+        self.last_detail = None
         if len(stream) == 0:
             self.last_service_time = np.zeros(0, dtype=np.float64)
             return np.zeros(0, dtype=np.float64)
         end_tx = np.empty(len(stream), dtype=np.float64)
+        up_start = np.empty(len(stream), dtype=np.float64) if collect_detail else None
         rows_cell = self.cell_of[stream]
         for cell in self.cells:
             rows = np.flatnonzero(rows_cell == cell.cell_id)
             if len(rows):
                 end_tx[rows] = cell.uplink.upload_batch(payloads[rows], subs[rows])
+                if collect_detail:
+                    up_start[rows] = cell.uplink.last_starts
         replica = self.placement.assign(self.pool, end_tx)
         done = self.pool.process(end_tx, replica, service_scale=service_scale)
         # batched service reports the member's whole-batch f(n); without
         # batching this is exactly server_time[replica] as before
         self.last_service_time = self.pool.last_service
+        if collect_detail:
+            self.last_detail = {
+                "cell": rows_cell, "up_start": up_start, "up_end": end_tx.copy(),
+                "replica": replica, "service": self.pool.last_service.copy(),
+                "batch_id": self.pool.last_batch_id.copy(), "done": done.copy(),
+            }
         return done + self.latency
 
     def reset(self):

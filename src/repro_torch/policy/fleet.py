@@ -1,5 +1,6 @@
 """Struct-of-arrays fleet control plane: S streams' policy state, batched
-(port of ``repro.policy.fleet``; host numpy, the reference's numpy backend).
+(port of ``repro.policy.fleet``; host numpy, and the fixed-shape tensor
+planner of ``policy/fleet_torch.py`` behind ``backend="torch"``).
 
 The per-stream path keeps one ``PolicyRunner`` per stream — a Python list
 of ``Frame`` objects per backlog and one EWMA estimator per link — and the
@@ -22,8 +23,9 @@ the fleet state, materializes an ``EnvBatch`` per round, groups streams by
 over ``_plan`` otherwise), then applies consume/observe as segment
 operations.  Per-stream and batched paths are interchangeable: the fuzz
 tests assert ``plan_all`` reproduces looped ``plan`` for every registered
-policy.  The reference's compiled planner (``backend="jax"``) has no
-counterpart yet (ROADMAP A.9), nor has its phase profiler (A.10).
+policy.  ``backend="torch"`` plans on the card (``device``; the CPU when
+the caller asks) through ``fleet_torch.plan_fleet``, the counterpart of the
+reference's ``backend="jax"``, which raises here.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import Sequence
 import numpy as np
 
 from repro_torch.core.netsim import payload_sizes
+from repro_torch.device import resolve_device
 from repro_torch.policy.base import OneShotPolicy
 from repro_torch.policy.types import ActionTable, EnvBatch, Frame, PlanBatch
 
@@ -263,16 +266,23 @@ class FleetRunner:
     backlog state in a ``FleetState``.  Heterogeneous fleets are grouped
     by (policy class, config); each group plans all of its streams in one
     ``plan_many`` call.
+
+    ``backend="torch"`` plans each group with ``fleet_torch``'s fixed-shape
+    planner on ``device`` (``None`` is the card; without a GPU that
+    raises); ``backend="numpy"`` ignores ``device``.
     """
 
     def __init__(self, policies: Sequence, *, resolutions: tuple, acc_server: tuple,
                  deadline: float, latency: float, server_time: float, size_of,
                  bw_init: float | np.ndarray = 1e6, bw_alpha: float = 0.3,
                  cell_id: np.ndarray | None = None, backend: str = "numpy",
-                 actions: ActionTable | None = None):
-        if backend != "numpy":
+                 actions: ActionTable | None = None, device=None):
+        if backend == "jax":
             raise NotImplementedError(
-                f"backend={backend!r}: only the numpy planner is ported (ROADMAP A.9)")
+                "backend='jax' is the reference's; the port's compiled planner is"
+                " backend='torch' (ROADMAP A.9)")
+        if backend not in ("numpy", "torch"):
+            raise ValueError(f"backend must be 'numpy' or 'torch', got {backend!r}")
         self.policies = list(policies)
         S = len(self.policies)
         self.n_streams = S
@@ -303,6 +313,9 @@ class FleetRunner:
         self.actions = actions if actions.has_splits else None
         self.sizes = actions.sizes[:actions.n_frame_actions]
         self.bw_alpha = float(bw_alpha)
+        # telemetry hook (``obs.PhaseProfiler``): when set, plan_all folds
+        # its wall clock into the "plan" phase; None costs nothing
+        self.profiler = None
         # under an edge fabric, ``bw_init`` is the (S,) per-cell prior and
         # each stream's EWMA tracks its own cell's uplink from then on
         self.bw_est = np.broadcast_to(np.asarray(bw_init, dtype=np.float64), (S,)).copy()
@@ -316,6 +329,33 @@ class FleetRunner:
             groups.setdefault(_group_key(p), []).append(s)
         self.groups = [(self.policies[ss[0]], np.asarray(ss, dtype=np.int64))
                        for ss in groups.values()]
+        self.backend = backend
+        self.device = None
+        self._torch_planner = None
+        # backend="torch": the last plan_all's per-stream frontier flags
+        # (``PlanOut.overflow`` / ``inexact``; False on inactive streams)
+        self.last_overflow = self.last_inexact = None
+        if backend == "torch":
+            from repro_torch.policy.fleet_torch import (make_planner, spec_for_policy,
+                                                        torch_unsupported_policies)
+
+            reasons = torch_unsupported_policies([p for p, _ in self.groups])
+            if reasons:
+                raise ValueError("backend='torch' cannot express this fleet: "
+                                 + "; ".join(reasons))
+            self.device = resolve_device(device)
+            # heterogeneous fleets share one pad width L (the largest
+            # group's max_backlog); a homogeneous fleet pads to its own
+            het = len(self.groups) != 1
+            L = max(int(p.max_backlog) for p, _ in self.groups)
+            self._torch_planner = []
+            for policy, streams in self.groups:
+                spec = spec_for_policy(
+                    policy, sizes=self.sizes, acc_server=self.acc_server,
+                    deadline=self.deadline, latency=self.latency,
+                    server_time=self.server_time, pad_L=L if het else None,
+                    actions=self.actions)
+                self._torch_planner.append((spec, make_planner(spec, self.device), streams))
 
     # -- env ------------------------------------------------------------- #
 
@@ -333,10 +373,18 @@ class FleetRunner:
 
     def plan_all(self, now: np.ndarray, active: np.ndarray | None = None) -> PlanBatch:
         """One planning pass over every active stream's backlog."""
+        if self.profiler is None:
+            return self._plan_all(now, active)
+        with self.profiler.phase("plan"):
+            return self._plan_all(now, active)
+
+    def _plan_all(self, now: np.ndarray, active: np.ndarray | None = None) -> PlanBatch:
         S = self.n_streams
         now = np.asarray(now, dtype=np.float64)
         active = np.ones(S, dtype=bool) if active is None else np.asarray(active, dtype=bool)
         self.state.prune_expired(now, self.deadline, active & self._prune)
+        if self.backend == "torch":
+            return self._plan_all_torch(now, active)
         env = self.env_batch()
         batch = PlanBatch.empty(S, len(self.acc_server))
         batch.n_frames = self.state.lengths.copy()
@@ -353,6 +401,59 @@ class FleetRunner:
                 pb = plan_many(now[sel], sub_state, sub_env)
             batch.scatter(sel, pb)
         batch.sort_offloads()
+        batch.planned = active.copy()
+        return batch.annotate_actions(self.actions)
+
+    def _plan_all_torch(self, now: np.ndarray, active: np.ndarray) -> PlanBatch:
+        """Tensor planning pass: pad the (already pruned) ragged state to
+        fixed shapes on the device, run each group's planner, bridge back
+        to one ``PlanBatch``; heterogeneous fleets reuse the numpy path's
+        group scatter and sort on the host."""
+        import torch
+
+        from repro_torch.policy.fleet_torch import PaddedFleet, fleet_from_state, plan_batch_from_out
+
+        spec0 = self._torch_planner[0][0]
+        dev = self.device
+        fleet = fleet_from_state(self.state, spec0.L, dtype=spec0.dtype, device=dev)
+        now_t = torch.as_tensor(np.where(np.isfinite(now), now, np.inf), dtype=spec0.dtype, device=dev)
+        bw_t = torch.as_tensor(np.maximum(self.bw_est, 1.0), dtype=spec0.dtype, device=dev)
+        # occupancy-aware T^o: an override only when the calibrated estimate
+        # deviates from the spec's nominal, so batching-free runs keep the
+        # nominal's Python-float arithmetic
+        st = (None if float(self.server_time) == spec0.server_time
+              else torch.tensor(self.server_time, dtype=spec0.dtype, device=dev))
+        m = len(self.acc_server)
+        overflow = np.zeros(self.n_streams, dtype=bool)
+        inexact = np.zeros(self.n_streams, dtype=bool)
+        if len(self._torch_planner) == 1:
+            _, planner, _ = self._torch_planner[0]
+            out = planner(fleet, now_t, bw_t, st)
+            batch = plan_batch_from_out(out, self.n_streams, m)
+            overflow[:], inexact[:] = out.overflow.cpu().numpy(), out.inexact.cpu().numpy()
+        else:
+            batch = PlanBatch.empty(self.n_streams, m)
+            for _, planner, streams in self._torch_planner:
+                idx = torch.as_tensor(streams, device=dev)
+                sub = PaddedFleet(fleet.arrival[idx], fleet.conf[idx], fleet.length[idx])
+                out = planner(sub, now_t[idx], bw_t[idx], st)
+                batch.scatter(streams, plan_batch_from_out(out, len(streams), m))
+                overflow[streams], inexact[streams] = out.overflow.cpu().numpy(), out.inexact.cpu().numpy()
+            batch.sort_offloads()
+        self.last_overflow, self.last_inexact = overflow & active, inexact & active
+        if not active.all():  # inactive streams keep PlanBatch.empty rows
+            batch.theta[~active] = 0.0
+            batch.resolution[~active] = m - 1
+            batch.n_offloads[~active] = 0
+            batch.total_gain[~active] = 0.0
+            batch.base_acc[~active] = 0.0
+            sel = active[batch.off_stream]
+            batch.off_stream = batch.off_stream[sel]
+            batch.off_pos = batch.off_pos[sel]
+            batch.off_res = batch.off_res[sel]
+            batch.off_kind = batch.off_kind[sel]
+            batch.off_cut = batch.off_cut[sel]
+        batch.n_frames = self.state.lengths.copy()
         batch.planned = active.copy()
         return batch.annotate_actions(self.actions)
 

@@ -24,11 +24,12 @@ argument becomes the degenerate 1-cell/1-replica fabric, the shared-uplink
 pipeline bit for bit.
 
 The tiers run on ``device`` (``cuda`` unless the caller passes ``"cpu"``);
-the planner, the uplink, the fabric and the metrics stay on the host in
-float64, as the reference's numpy engine.
+the planner, the uplink, the fabric, the metrics and the telemetry
+(``obs/``) stay on the host in float64, as the reference's numpy engine.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -158,9 +159,11 @@ class MultiStreamServer:
     batched slow-tier call over the cross-stream escalations, and
     vectorized deadline/metric accounting: no per-stream or per-frame
     Python.  ``round_hook``, when set, is called with one dict per round
-    (the reference's keys).  Only the reference's numpy round loop is
-    ported: ``backend`` other than ``"numpy"`` (ROADMAP A.9) and
-    ``telemetry`` (A.10) raise.
+    (the reference's keys).  ``telemetry`` (``obs.Telemetry``) adds a
+    per-round recorder, a frame tracer and a phase profiler; ``None`` is
+    the zero-cost path.  Only the reference's numpy round loop is ported:
+    ``backend`` other than ``"numpy"`` raises (the compiled round loop,
+    ROADMAP A.9).
     """
 
     def __init__(self, cfg: ServeConfig, fast_forward: Callable, slow_forward: Callable,
@@ -172,9 +175,8 @@ class MultiStreamServer:
             raise ValueError("n_streams must be >= 1")
         if backend != "numpy":
             raise NotImplementedError(
-                f"backend={backend!r}: only the numpy round loop is ported (ROADMAP A.9)")
-        if telemetry is not None:
-            raise NotImplementedError("telemetry is not ported yet (ROADMAP A.10)")
+                f"backend={backend!r}: only the numpy round loop is ported; the compiled"
+                " round loop (engine_jax) is not (ROADMAP A.9)")
         self.device = resolve_device(device)
         self.round_hook = None
         self.cfg = cfg
@@ -215,6 +217,14 @@ class MultiStreamServer:
         )
         self.metrics = AggregateMetrics.for_streams(n_streams, uplink=self.uplink,
                                                     fabric=fabric)
+        # optional observability bundle (``obs.Telemetry``); ``None`` is the
+        # zero-cost path: every hook below is an ``is not None`` check
+        self.telemetry = telemetry
+        if telemetry is not None:
+            telemetry.bind(n_streams=n_streams, n_cells=fabric.n_cells,
+                           n_replicas=fabric.n_replicas,
+                           n_actions=self.fleet.action_table.n_actions)
+            self.fleet.profiler = telemetry.profiler
 
     @torch.inference_mode()
     def process_streams(self, frames: np.ndarray, labels: Optional[np.ndarray] = None,
@@ -235,18 +245,27 @@ class MultiStreamServer:
         if schedule.n_streams != S or schedule.n_frames != frames.shape[1]:
             raise ValueError("schedule shape must match frames (S, N)")
         self.metrics.wall_time = schedule.horizon
+        # telemetry hooks: host clocks only, no device synchronization; a
+        # phase holds device time where the round already waits for it
+        tel = self.telemetry
+        rec = tel.recorder if tel is not None else None
+        tracer = tel.tracer if tel is not None else None
+        prof = tel.profiler if tel is not None else None
 
         for start, arr, valid in schedule.rounds(B):
             b = arr.shape[1]
             active = valid.any(axis=1)  # (S,) streams with frames this round
             self.fleet.retire(~active)
 
+            t0 = time.perf_counter() if prof is not None else 0.0
             flat = torch.as_tensor(frames[:, start : start + b].reshape(S * b, *frames.shape[2:]),
                                    device=self.device)
             fp, cf = fast_pass(self.fast_forward, self.calibrate, flat,
                                use_fused=cfg.use_fused, platt_ab=cfg.platt_ab)
             fast_preds = fp.cpu().numpy().reshape(S, b)
             conf = cf.cpu().numpy().reshape(S, b)
+            if prof is not None:
+                prof.add("serve", time.perf_counter() - t0)
             t_ready = arr + t_fast  # (S, b); +inf on invalid slots
 
             # control plane: one batched plan over every active backlog,
@@ -278,23 +297,41 @@ class MultiStreamServer:
 
             # one gather on the device, one slow-tier call for every
             # stream's escalations
+            t0 = time.perf_counter() if prof is not None else 0.0
             if len(esc):
                 gathered = flat.index_select(
                     0, torch.as_tensor(s_idx * b + slot_idx, device=self.device))
                 slow_preds = slow_pass_multires(self.slow_forward, gathered, esc.res).cpu().numpy()
             else:
                 slow_preds = np.zeros(0, dtype=fast_preds.dtype)
+            if prof is not None:
+                prof.add("serve", time.perf_counter() - t0)
 
             # fair uplink schedule (cost normalized by each stream's own
             # cell rate), then one fabric transmit for the round
+            t0 = time.perf_counter() if prof is not None else 0.0
             order = self.scheduler.order(esc.stream, esc.t_ready,
                                          cost=esc.payload / self._stream_bw[esc.stream])
             q = esc.permuted(order)
             slow_q = slow_preds[order]
             lands = self.fabric.transmit(q.stream, q.payload, q.t_ready,
-                                         service_scale=act.srv_frac[res_idx[q.stream]])
+                                         service_scale=act.srv_frac[res_idx[q.stream]],
+                                         collect_detail=tracer is not None)
+            if prof is not None:
+                prof.add("transmit", time.perf_counter() - t0)
             ok = lands <= arr[q.stream, q.slot] + cfg.deadline
 
+            if tracer is not None and len(q):
+                d = self.fabric.last_detail
+                tracer.record_round(
+                    stream=q.stream, slot=q.slot,
+                    arrival=arr[q.stream, q.slot], t_ready=q.t_ready,
+                    cell=d["cell"], up_start=d["up_start"], up_end=d["up_end"],
+                    replica=d["replica"], service=d["service"],
+                    batch_id=d["batch_id"], done=d["done"],
+                    land=lands, ok=ok, deadline=cfg.deadline)
+
+            t0 = time.perf_counter() if prof is not None else 0.0
             final = fast_preds.copy()
             final[q.stream[ok], q.slot[ok]] = slow_q[ok]
 
@@ -324,6 +361,30 @@ class MultiStreamServer:
                        if labels is not None else np.zeros(S, dtype=np.int64))
             self.metrics.update_round(valid.sum(axis=1), off_counts, miss_counts,
                                       correct, lat, valid)
+            if prof is not None:
+                prof.add("fold", time.perf_counter() - t0)
+
+            if rec is not None:
+                # cumulative counters, the planner's state as used this
+                # round, and the contention cursors after it
+                t_round = float(fin.min()) if len(fin) else np.nan
+                hist = np.zeros(rec.n_actions, dtype=np.int64)
+                np.add.at(hist, res_idx, np.where(active, batch.n_offloads, 0))
+                m, fab = self.metrics, self.fabric
+                rec.record_round(
+                    t=t_round,
+                    frames=m._frames, offloads=m._offloaded,
+                    misses=m._missed, correct=m._correct,
+                    bw_est=self.fleet.bw_est,
+                    bw_true=fab.true_bandwidth(t_round),
+                    cell_busy_s=[c.uplink.busy_seconds for c in fab.cells],
+                    cell_queued_s=[c.uplink.queued_seconds for c in fab.cells],
+                    rep_busy_s=pool.busy_seconds,
+                    rep_queued_s=pool.queued_seconds,
+                    avg_batch=pool.avg_batch,
+                    server_time=self.fleet.server_time,
+                    action_off=hist,
+                )
 
             if self.round_hook is not None:
                 ok_grid = np.zeros((S, b), dtype=bool)

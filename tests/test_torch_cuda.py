@@ -613,3 +613,117 @@ def test_stablelm_smoke_fold_decode_card_matches_cpu(cuda_device):
         assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _fleet_backlog(S, mb, seed):
+    """``tests/test_fleet_jax.py::fuzz_backlog``: ascending arrivals on the
+    1/32 grid, uniform confidences, 80 % of the streams active."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, mb + 1, size=S)
+    stream = np.repeat(np.arange(S), lens)
+    t0 = rng.integers(0, 64, size=S) / 32.0
+    pos = np.concatenate([np.arange(n) for n in lens]) if lens.sum() else np.zeros(0)
+    arrival = t0[stream] + pos / 32.0
+    conf = rng.uniform(0.05, 0.95, size=lens.sum())
+    now = t0 + (lens + 0.5) / 32.0
+    bw = rng.uniform(2e5, 1e7, size=S)
+    active = rng.random(S) < 0.8
+    return stream, arrival, conf, np.where(active, now, np.inf), bw, active
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["cbo", "threshold", "local", "server", "greedy-rate", "cbo-split"])
+def test_fleet_planner_card_matches_cpu(cuda_device, policy):
+    """``FleetRunner(backend="torch")`` on the card against the same runner
+    on the CPU: the integer fields and theta bit-equal (the same float32
+    operations in the same order; sums only in the gains and base
+    accuracies, within 1e-4), also under a T^o override; ``overflow`` and
+    ``inexact`` clear on both."""
+    from repro_torch.core.netsim import payload_sizes, png_size_model
+    from repro_torch.policy.fleet import FleetRunner
+    from repro_torch.policy.registry import make_policy
+    from repro_torch.policy.types import ActionTable
+
+    name = policy.split("-split")[0]
+    kw = dict(max_backlog=12, **({"frame_interval": 1.0 / 32.0} if name == "server" else {}))
+    actions = None
+    if policy.endswith("split"):
+        frames = ActionTable.frames_only(sizes=payload_sizes(png_size_model, np.asarray((4, 8))),
+                                         acc=np.asarray((0.7, 0.99)))
+        actions = ActionTable(kind=np.r_[frames.kind, 1, 1], res=np.r_[frames.res, 1, 1],
+                              cut=np.r_[frames.cut, 0, 1], sizes=np.r_[frames.sizes, 1.5e3, 2.0e3],
+                              acc=np.r_[frames.acc, 0.984375, 0.99], t_dev=np.r_[frames.t_dev, 2.0 ** -10, 2.0 ** -8],
+                              srv_frac=np.r_[frames.srv_frac, 0.5, 0.25], names=frames.names + ("c0", "c1"))
+    for S, seed, st in ((17, 1, None), (4099, 2, None), (4099, 3, 0.0515625)):
+        plans = {}
+        for dev in (cuda_device, "cpu"):
+            r = FleetRunner([make_policy(name, **kw) for _ in range(S)], resolutions=(4, 8),
+                            acc_server=(0.7, 0.99), deadline=0.2, latency=0.05, server_time=0.037,
+                            size_of=png_size_model, bw_init=50e6 / 8, backend="torch", device=dev,
+                            actions=actions)
+            stream, arrival, conf, now, bw, active = _fleet_backlog(S, 12, seed)
+            r.observe_frames(stream, arrival, conf)
+            r.bw_est[:] = bw
+            if st is not None:
+                r.server_time = st
+            plans[str(dev)] = r.plan_all(now, active)
+            assert not r.last_overflow.any() and not r.last_inexact.any(), (policy, S, str(dev))
+        pc, pg = plans["cpu"], plans[str(cuda_device)]
+        for k in ("resolution", "n_offloads", "n_frames", "off_stream", "off_pos", "off_res",
+                  "off_kind", "planned", "theta"):
+            assert np.array_equal(getattr(pc, k), getattr(pg, k)), (policy, S, k)
+        np.testing.assert_allclose(pg.total_gain, pc.total_gain, atol=1e-4)
+        np.testing.assert_allclose(pg.base_acc, pc.base_acc, atol=1e-4)
+        assert len(pc.off_stream) > 0 or name == "local"
+
+
+@pytest.mark.cuda
+def test_fleet_pad_defaults_to_the_card(cuda_device):
+    """``pad_fleet`` and ``fleet_from_state`` without a device land on the
+    card, as the reference's ``jnp.asarray`` lands on the accelerator."""
+    from repro_torch.policy import fleet_torch as ft
+    from repro_torch.policy.fleet import FleetState
+
+    stream, arrival, conf, _, _, _ = _fleet_backlog(33, 12, 4)
+    lens = np.bincount(stream, minlength=33)
+    state = FleetState(33, max_backlog=[12] * 33)
+    state.extend(stream, arrival, conf)
+    for fleet in (ft.pad_fleet(arrival, conf, lens, 12), ft.fleet_from_state(state, 12)):
+        assert all(x.device.type == "cuda" for x in fleet)
+        cpu = ft.pad_fleet(arrival, conf, lens, 12, device="cpu")
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(fleet, cpu))
+
+
+@pytest.mark.cuda
+def test_fleet_segment_ops_and_ewma_card_match_cpu(cuda_device):
+    """The segment ops and ``ewma_fold`` (its exact fused multiply-add in
+    float64) bit-equal on the card and the CPU, over-deep streams and
+    out-of-range rows included."""
+    from repro_torch.policy import fleet_torch as ft
+
+    rng = np.random.default_rng(0)
+    S, L, B, N = 257, 12, 5, 3000
+    lens = rng.integers(0, L + 1, size=S).astype(np.int32)
+    arr = ((rng.integers(0, 64, size=(S, 1)) + np.arange(L)) / 32.0).astype(np.float32)
+    conf = rng.uniform(0.05, 0.95, size=(S, L)).astype(np.float32)
+    now = (rng.integers(0, 80, size=S) / 32.0).astype(np.float32)
+    new_arr = (3.0 + rng.integers(0, 8, size=(S, B)) / 32.0).astype(np.float32)
+    new_conf = rng.uniform(0.05, 0.95, size=(S, B)).astype(np.float32)
+    masks = [rng.random(S) < 0.7, rng.random((S, L)) < 0.3, rng.random(S) < 0.2, rng.random((S, B)) < 0.6]
+    stream = np.r_[rng.integers(0, 8, size=N // 2), rng.integers(-3, S + 3, size=N - N // 2)]
+    rate = rng.uniform(1e5, 1e7, size=N).astype(np.float32)
+    ok = rng.random(N) < 0.7
+    bw = rng.uniform(1e5, 1e7, size=S).astype(np.float32)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+        fleet = ft.PaddedFleet(t(arr), t(conf), t(lens))
+        do, take, clear, new_ok = (t(m) for m in masks)
+        res = [ft.prune_fleet(fleet, t(now), 0.2, do), ft.consume_fleet(fleet, take, clear),
+               ft.extend_fleet(fleet, t(new_arr), t(new_conf), new_ok, L),
+               ft.extend_fleet(fleet, t(new_arr), t(new_conf), new_ok, t(np.full(S, 7, np.int32))),
+               ft.clear_fleet(fleet, clear)]
+        fold = ft.ewma_fold(t(bw), 0.3, t(stream), t(rate), t(ok), S, 6)
+        out[dev.type] = [x.cpu().numpy() for f in res for x in f] + [fold.cpu().numpy()]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)

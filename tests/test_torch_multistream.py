@@ -494,8 +494,8 @@ def test_multistream_refuses_what_is_not_ported():
     up = tnet.Uplink(bandwidth_bps=tnet.mbps(50.0), latency=0.05, server_time=cfg.server_time)
     with pytest.raises(NotImplementedError, match="A.9"):
         tsrv.MultiStreamServer(cfg, fast, slow, cal, up, n_streams=2, backend="jax", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tsrv.MultiStreamServer(cfg, fast, slow, cal, up, n_streams=2, telemetry=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A.9"):
+        tsrv.MultiStreamServer(cfg, fast, slow, cal, up, n_streams=2, backend="torch", device="cpu")
     with pytest.raises(ValueError):
         tsrv.MultiStreamServer(cfg, fast, slow, cal, None, n_streams=2, device="cpu")
     with pytest.raises(ValueError):
