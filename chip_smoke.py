@@ -55,18 +55,30 @@ without them it exits non-zero before printing any result.  Phases:
      1,048,576 streams on the card against the numpy ``FleetRunner`` on the
      host (five policies, and cbo over the DeiT-B cut catalog): the same
      decisions, no frontier overflow, host and device times, peak memory.
+     3g. path 7: (a) path 3's fleet at ``frame_rate=32`` served by
+     ``MultiStreamServer(backend="numpy")`` and by ``backend="torch"``, the
+     whole fleet round on the card: the tiers of every round precomputed
+     there (one calib-gate launch a round, the DeiT-B slow tier at each of
+     the 5 resolutions), then one CUDA-graph replay a round; every round's
+     integer fields equal; (b) the round engine alone on synthetic rounds
+     (``bench_fleet_control.py``'s) at 1,000 to 1,000,000 streams: capture
+     and steady seconds, rounds and frames a second, device ms a round,
+     peak card memory, the card against the CPU at 1,000.
      Each path's kernel launch counts are set to 0 just before its run and
      read just after; then the same stream (path 4: 8 more decode steps;
      path 5: the split fleet; path 6: the telemetry run, one cbo planning
-     call at 131,072 streams) runs again under ``torch.profiler`` for the
-     device's idle share;
+     call at 131,072 streams; path 7: the torch run, and 8 rounds at
+     100,000 streams) runs again under ``torch.profiler`` for the device's
+     idle share;
   4. one batch's fast pass on the card against the same pass on the CPU,
      (4b) DeiT-B's logits on two frames likewise, TF32 off, (4c) the
      multi-stream engine with the synthetic tiers on the card against the
      CPU, (4d) a 2-layer model at StableLM-12B's widths, prefill and
      int8-fold decode, card (the kernel) against CPU (the plain version),
-     and (4e) path 5's split fleet with the synthetic tiers on the card
-     against the CPU;
+     (4e) path 5's split fleet with the synthetic tiers on the card
+     against the CPU, and (4f) the round engine (``backend="torch"``) with
+     the synthetic tiers on the card against the CPU, over a live-batching
+     fabric and a counter-jittered 2-cell fabric;
   5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, and the script exits non-zero.
@@ -151,6 +163,12 @@ PLAN = dict(max_backlog=12, resolutions=(4, 8), acc_server=(0.7, 0.99), deadline
             server_time=0.037)
 PLAN_SIZES = (1024, 16384, 131072, 1048576)
 THETA_ATOL = 1e-6  # tests/_diff.py: a float32 copy of a float64 confidence
+BW_RTOL = 1e-2  # tests/_diff.py: bandwidth estimates, float32 timestamps against float64
+LAT_ATOL = 1e-4  # tests/_diff.py: latencies, likewise
+EXACT_KEYS = ("res_idx", "cap", "n_off", "n_frames", "off_stream", "off_pos", "off_res", "off_kind",
+              "off_cut", "lengths", "correct", "esc", "ok", "valid")  # tests/_diff.py
+ENGINE = dict(max_backlog=8, batch=8, rounds=8, bw_mbps=6.0)  # path 7 (b): bench_fleet_control.py's
+ENGINE_SIZES = (1_000, 10_000, 100_000, 1_000_000)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -587,7 +605,8 @@ def flash_phase(torch, flash_attention, attention_ref):
 
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [("path K=16", 16, 198, 198, 12, 64, False, f32, False),
-             ("path K=3", 3, 198, 198, 12, 64, False, f32, False)]
+             ("path K=3", 3, 198, 198, 12, 64, False, f32, False),
+             ("path 7 B=128", 128, 198, 198, 12, 64, False, f32, False)]
     for B, S, H, D in ((1, 256, 2, 64), (2, 512, 4, 64), (2, 384, 2, 128), (1, 1024, 1, 64)):
         for causal in (True, False):
             cases.append((f"sweep{'-causal' if causal else ''}", B, S, S, H, D, causal, f32, False))
@@ -1559,6 +1578,284 @@ def planner_phase() -> list:
     return rows
 
 
+def rounds_equal(ref_recs, recs, label) -> None:
+    """``tests/_diff.py``'s ``assert_round_equal`` on two runs' round
+    records: ``EXACT_KEYS`` equal, theta, bandwidth estimates and latencies
+    within the tolerances, no frontier overflow or inexact prune."""
+    check(len(ref_recs) == len(recs) > 0, f"{label}: {len(ref_recs)} vs {len(recs)} rounds")
+    for i, (a, b) in enumerate(zip(ref_recs, recs)):
+        for k in EXACT_KEYS:
+            check(np.array_equal(a[k], b[k]), f"{label}, round {i}: {k} differs: {a[k]!r} vs {b[k]!r}")
+        check(np.abs(b["theta"] - a["theta"]).max(initial=0.0) <= THETA_ATOL, f"{label}, round {i}: theta")
+        check(bool(np.all(np.abs(b["bw_est"] - a["bw_est"]) <= BW_RTOL * np.abs(a["bw_est"]))),
+              f"{label}, round {i}: bw_est")
+        check(np.abs(b["lat"] - a["lat"]).max(initial=0.0) <= LAT_ATOL, f"{label}, round {i}: lat")
+        for k in ("overflow", "inexact"):
+            check(not np.any(b.get(k, False)), f"{label}, round {i}: {k}")
+
+
+def round_engine_phase(fast, deit, frames, labels, fabric, counted, flash_per_call):
+    """Phase 3g (a), path 7: path 3's fleet (its tiers, 2 cells x 2
+    replicas, the f(batch) fit as the replicas' continuous-batching curve,
+    its coefficients rounded to float32 so both engines share one curve,
+    jsq placement) at ``frame_rate=32``, served by ``backend="numpy"``
+    and then by ``backend="torch"``: the tiers of every round precomputed
+    on the card, then one CUDA-graph replay a round.  The rounds' integer
+    fields are equal, floats within the differential tolerances.
+    ``counted`` maps each kernel's name to its wrapper; every count is set
+    to 0 just before the torch run and read just after.  Then the torch
+    run again under one trace of the card.  Returns the launches."""
+    import torch
+
+    from repro_torch.core.netsim import Uplink, mbps
+    from repro_torch.net import EdgeFabric, ReplicaPool
+    from repro_torch.obs import Telemetry
+    from repro_torch.serving.engine import MultiStreamServer, ServeConfig
+    from repro_torch.slowtier import ContinuousBatching, model_coeffs, model_from_coeffs
+
+    S = frames.shape[0]
+    cfg = ServeConfig(batch_size=BATCH, use_fused=True, platt_ab=PLATT, acc_server=ACC_SERVER, frame_rate=32.0)
+    m = len(cfg.resolutions)
+    n_rounds = -(-frames.shape[1] // cfg.batch_size)
+    kind, coeffs = model_coeffs(fabric().pool.batching.model)
+    batching = ContinuousBatching(model_from_coeffs(kind, tuple(float(np.float32(c)) for c in coeffs)),
+                                  window_s=BATCH_WINDOW_S, max_batch=BATCH)
+
+    def server_of(backend, telemetry=None):
+        pool = ReplicaPool(2, [cfg.server_time, 1.5 * cfg.server_time], serial=True, batching=batching)
+        ups = [Uplink(bandwidth_bps=mbps(BW_MBPS), latency=0.05, server_time=cfg.server_time, seed=c)
+               for c in (0, 1)]
+        return MultiStreamServer(cfg, fast, deit, None, None, n_streams=S, policy="cbo", device="cuda",
+                                 fabric=EdgeFabric(ups, pool, n_streams=S, placement="jsq"),
+                                 backend=backend, telemetry=telemetry)
+
+    def serve(backend, telemetry=None):
+        server = server_of(backend, telemetry)
+        recs = []
+        server.round_hook = recs.append
+        t0 = time.perf_counter()
+        metrics = server.process_streams(frames, labels)
+        torch.cuda.synchronize()
+        return server, metrics, recs, time.perf_counter() - t0
+
+    server_np, m_np, r_np, wall_np = serve("numpy")
+    for fn in counted.values():
+        fn.launches = 0
+    tel = Telemetry(record=False, profile=True)
+    server, m_t, r_t, wall_t = serve("torch", tel)
+    launches = {name: fn.launches for name, fn in counted.items()}
+
+    check(launches["calib_gate"] == n_rounds, f"path 7 (a): calib_gate launched {launches['calib_gate']} times"
+          f" in {n_rounds} rounds")
+    check(launches["flash_attention"] == flash_per_call * m * n_rounds,
+          f"path 7 (a): flash_attention launched {launches['flash_attention']} times, expected"
+          f" {flash_per_call} x {m} resolutions x {n_rounds} rounds")
+    check(launches["int8_matmul"] == 0 and launches["int8_kv_decode"] == 0, f"path 7 (a) launches {launches}")
+    rounds_equal(r_np, r_t, "path 7 (a), numpy vs torch")
+    for k in ("_frames", "_offloaded", "_missed", "_correct"):
+        check(np.array_equal(getattr(m_np, k), getattr(m_t, k)), f"path 7 (a): {k} differs")
+    check(m_t.accuracy == m_np.accuracy and m_t.n_frames == S * frames.shape[1], "path 7 (a): accuracy, frames")
+    check(m_t.n_offloaded + m_t.n_deadline_miss > 0, "path 7 (a): no frame escalated")
+    prof = tel.profiler.totals
+    check({"precompute", "compile", "scan", "fold"} <= set(prof), f"path 7 (a): profiler phases {prof}")
+    print(f"path 7 on {card_line()}: (a) path 3's fleet ({S} streams x {frames.shape[1]} frames, {n_rounds} rounds"
+          f" at frame_rate 32, 2 cells x {BW_MBPS} Mbps, 2 replicas batching on the f(batch) fit {kind}"
+          f" {tuple(float(np.float32(c)) for c in coeffs)}, jsq) served by backend='numpy' and backend='torch':"
+          f" every round's integer fields equal, floats within the tolerances; launches in the torch run {launches}")
+    print("  numpy AggregateMetrics.summary():", json.dumps(m_np.summary()))
+    print("  torch AggregateMetrics.summary():", json.dumps(m_t.summary()))
+    print(f"  wall s: numpy backend {wall_np:.3f}, torch backend {wall_t:.3f} = precompute {prof['precompute']:.3f}"
+          f" + capture {prof['compile']:.3f} + {n_rounds} rounds {prof['scan']:.6f}"
+          f" ({n_rounds / prof['scan']:.1f} rounds/s) + fold {prof['fold']:.3f}; pool.avg_batch"
+          f" {server.fabric.pool.avg_batch:.6f} (numpy {server_np.fabric.pool.avg_batch:.6f})")
+    again = server_of("torch")
+    box = []
+    busy_ms, traced_ms = traced(lambda: box.append(again.process_streams(frames, labels)), host_ops=False)
+    idle = "not measured" if busy_ms is None else f"{1 - busy_ms / traced_ms:.4f}"
+    print(f"  traced repeat (torch backend): device busy {busy_ms} ms of {traced_ms:.3f} ms wall; device idle share"
+          f" {idle}; same summary as the counted run: {box[0].summary() == m_t.summary()}")
+    kernels, rows, replay_ms = graph_kernels(again)
+    print(f"  the round's graph: {kernels} kernels a replay, {rows} unrolled per-row steps (jsq over"
+          f" {S * BATCH} rows, 2 replicas' batch loops), {replay_ms:.3f} ms a replay (events)")
+    return launches
+
+
+def graph_kernels(server):
+    """Kernels in one replay of ``server``'s round graph (``backend="torch"``),
+    from a trace of the card, its per-row steps unrolled, and its device ms
+    a replay (CUDA events, the mean of 10): the graph is static, so one
+    synthetic round of its shape has the same kernels."""
+    import torch
+
+    from repro_torch.obs import aot_split
+    from repro_torch.serving import engine_torch as et
+
+    spec = et.spec_from_server(server)
+    params = et.params_from_server(server, spec, device="cuda")
+    S, B, R = spec.n_streams, spec.batch, 11
+    g = torch.Generator(device="cuda").manual_seed(0)
+    arr = (torch.arange(R * B, dtype=torch.float32, device="cuda") / 32.0).reshape(R, 1, B)
+    inputs = et.RoundInputs(arr=arr.expand(R, S, B).contiguous(),
+                            valid=torch.ones((R, S, B), dtype=torch.bool, device="cuda"),
+                            conf=torch.rand((R, S, B), generator=g, device="cuda"),
+                            fast_ok=torch.ones((R, S, B), dtype=torch.bool, device="cuda"),
+                            slow_ok=torch.ones((R, S, B, spec.m), dtype=torch.bool, device="cuda"))
+    loop = et.RoundLoop(spec, params, et.init_carry(spec, params), inputs)
+    replay, _ = aot_split(loop.step, *loop.state)
+    events, _ = _profile(replay, 1, host_ops=False)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(R - 1):
+        replay()
+    end.record()
+    end.synchronize()
+    return sum(e.count for e in events), et.unrolled_rows(spec), start.elapsed_time(end) / (R - 1)
+
+
+def engine_case(S, device, rounds=ENGINE["rounds"], seed=0):
+    """``bench_fleet_control.py::bench_jax_one`` for the round engine: cbo,
+    max_backlog 8, batch 8, one cell of 6 Mbps, one replica (T^o = 37 ms),
+    arrivals on the 1/32 grid, confidences and correctness drawn on
+    ``device`` from ``seed`` (the CPU run of the same case copies the
+    card's draws)."""
+    import torch
+
+    from repro_torch.core.netsim import mbps, payload_sizes, png_size_model
+    from repro_torch.policy.fleet_torch import spec_for_policy
+    from repro_torch.policy.registry import make_policy
+    from repro_torch.serving import engine_torch as et
+
+    B = ENGINE["batch"]
+    sizes = payload_sizes(png_size_model, np.asarray(PLAN["resolutions"]))
+    planner = spec_for_policy(make_policy("cbo", max_backlog=ENGINE["max_backlog"]), sizes=sizes,
+                              acc_server=PLAN["acc_server"], deadline=0.2, latency=0.05, server_time=0.037)
+    spec = et.EngineSpec(n_streams=S, batch=B, n_cells=1, n_replicas=1, planner=planner, collect="none")
+    bw = mbps(ENGINE["bw_mbps"])
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=device).float()  # noqa: E731
+    params = et.EngineParams(sizes=f(sizes), cell_bw=f([bw]), cell_of=torch.zeros(S, dtype=torch.int64,
+                                                                                  device=device),
+                             replica_st=f([0.037]), stream_bw=torch.full((S,), bw, device=device),
+                             weights=torch.ones(S, device=device), bw_init=torch.full((S,), bw, device=device))
+    g = torch.Generator(device=device).manual_seed(seed)
+    arr = (torch.arange(rounds * B, dtype=torch.float32, device=device) / 32.0).reshape(rounds, 1, B)
+    inputs = et.RoundInputs(arr=arr.expand(rounds, S, B).contiguous(),
+                            valid=torch.ones((rounds, S, B), dtype=torch.bool, device=device),
+                            conf=torch.rand((rounds, S, B), generator=g, device=device),
+                            fast_ok=torch.rand((rounds, S, B), generator=g, device=device) < 0.7,
+                            slow_ok=torch.rand((rounds, S, B, 2), generator=g, device=device) < 0.9)
+    return spec, params, inputs
+
+
+def engine_bench_phase() -> list:
+    """Phase 3g (b), path 7: the round engine alone on synthetic rounds
+    (``engine_case``) at S = 1,000 ... 1,000,000 streams, 8 rounds each:
+    capture seconds (warm-up and capture, ``aot_split``), steady seconds
+    of the 8 replays (host clock, the device waited for), rounds and
+    frames a second, device ms a round (CUDA events around the replays)
+    and peak card memory.  At 1,000 streams the card's final carry is held
+    against the same rounds on the CPU (integer fields equal); one traced
+    repeat at 100,000 gives the idle share.  Returns the rows."""
+    import torch
+
+    from repro_torch.obs import aot_split
+    from repro_torch.serving import engine_torch as et
+
+    R, B = ENGINE["rounds"], ENGINE["batch"]
+    print(f"path 7 on {card_line()}: (b) the round engine on synthetic rounds (cbo, max_backlog"
+          f" {ENGINE['max_backlog']}, batch {B}, 1 cell of {ENGINE['bw_mbps']} Mbps, 1 replica, {R} rounds,"
+          f" collect='none'), one CUDA-graph replay a round")
+    rows = []
+    for S in ENGINE_SIZES:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        spec, params, inputs = engine_case(S, "cuda")
+        loop = et.RoundLoop(spec, params, et.init_carry(spec, params), inputs)
+        saved = [t.clone() for t in loop.state]
+        replay, capture_s = aot_split(loop.step, *loop.state)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(R):
+            replay()
+        end.record()
+        end.synchronize()
+        steady_s = time.perf_counter() - t0
+        round_ms = start.elapsed_time(end) / R
+        peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+        c = loop.carry
+        check(int(c.frames.sum()) == S * B * R, f"path 7 (b) S={S}: frames {int(c.frames.sum())}")
+        check(int(c.offloaded.sum()) > 0 and bool(torch.isfinite(c.bw_est).all()),
+              f"path 7 (b) S={S}: offloads {int(c.offloaded.sum())}, bw_est finite")
+        note = ""
+        if S == ENGINE_SIZES[0]:
+            cs, cp, ci = engine_case(S, "cpu")
+            ci = et.RoundInputs(*(x.cpu() for x in inputs))
+            cc, _ = et.simulate(cs, cp, ci)
+            for k in ("frames", "offloaded", "missed", "correct", "cell_n", "rep_n", "rr_next"):
+                check(torch.equal(getattr(cc, k), getattr(c, k).cpu()), f"path 7 (b) S={S}: card vs CPU {k}")
+            check(torch.equal(cc.fleet.length, c.fleet.length.cpu()), f"path 7 (b) S={S}: card vs CPU backlogs")
+            note = "; card vs CPU: integer carry equal"
+        if S == ENGINE_SIZES[2]:
+            first = [t.clone() for t in loop.state]
+            for t, v in zip(loop.state, saved):
+                t.copy_(v)
+            events, wall_ms = _profile(lambda: [replay() for _ in range(R)], 1, host_ops=False)
+            busy_ms = sum(e.self_device_time_total for e in events) / 1e3 or None
+            idle = "not measured" if busy_ms is None else f"{1 - busy_ms / wall_ms:.4f}"
+            check(all(torch.equal(a, b) for a, b in zip(loop.state, first)),
+                  f"path 7 (b) S={S}: the repeat's final state differs from the first run's")
+            note = (f"; traced repeat: device busy {busy_ms} ms of {wall_ms:.3f} ms wall, device idle share {idle},"
+                    f" {sum(e.count for e in events) / R:.0f} kernels a round; the repeat's final state"
+                    f" bit-equal to the first run's")
+        row = dict(streams=S, capture_s=capture_s, steady_s=steady_s, rounds_per_s=R / steady_s,
+                   frames_per_s=S * B * R / steady_s, round_ms=round_ms, peak_gb=peak_gb,
+                   offloaded=int(c.offloaded.sum()))
+        rows.append(row)
+        print(f"  S={S:8d}: capture {capture_s:.3f} s; {R} rounds {steady_s:.6f} s ({row['rounds_per_s']:.1f}"
+              f" rounds/s, {row['frames_per_s']:.4g} frames/s); device {round_ms:.4f} ms a round (events);"
+              f" peak card memory {peak_gb:.3f} GB; offloads {row['offloaded']}" + note)
+        del loop, replay, saved, inputs, params, c
+    return rows
+
+
+def engine_card_vs_cpu() -> None:
+    """Phase 4f: ``MultiStreamServer(backend="torch")`` with the synthetic
+    tiers on the card against the same engine on the CPU, over phase 4c's
+    live-batching fabric and over a counter-jittered 2-cell fabric: every
+    round's integer fields equal, floats within the tolerances, equal
+    summaries."""
+    from repro_torch.core.netsim import Uplink, mbps
+    from repro_torch.net import EdgeFabric, ReplicaPool
+    from repro_torch.serving.engine import MultiStreamServer, ServeConfig
+    from repro_torch.serving.synthetic import synthetic_streams, synthetic_tiers
+    from repro_torch.slowtier import ContinuousBatching, LinearBatch
+
+    for name, S, n, jitter, batching in (
+            ("live batching", 12, 64, 0.0,
+             ContinuousBatching(LinearBatch(0.03125, 0.0078125), window_s=0.03125)),
+            ("counter jitter 0.3", 6, 48, 0.3, None)):
+        imgs, labels = synthetic_streams(S, n)
+        recs, out = {}, {}
+        for device in ("cuda", "cpu"):
+            cfg = ServeConfig(resolutions=(4, 8), acc_server=(0.7, 0.99), frame_rate=32.0)
+            pool = ReplicaPool(2, [cfg.server_time, 1.5 * cfg.server_time], batching=batching)
+            ups = [Uplink(bandwidth_bps=mbps(30.0), latency=0.05, server_time=cfg.server_time, seed=c,
+                          jitter=jitter, jitter_mode="counter") for c in (0, 1)]
+            fast, slow, cal = synthetic_tiers()
+            server = MultiStreamServer(cfg, fast, slow, cal, None, n_streams=S, device=device, backend="torch",
+                                       fabric=EdgeFabric(ups, pool, n_streams=S, placement="jsq"))
+            recs[device] = []
+            server.round_hook = recs[device].append
+            out[device] = server.process_streams(imgs, labels).summary()
+        rounds_equal(recs["cpu"], recs["cuda"], f"phase 4f, {name}, card vs CPU")
+        check(out["cuda"] == out["cpu"], f"phase 4f, {name}: card {out['cuda']} vs CPU {out['cpu']}")
+        check(out["cuda"]["offload_frac"] > 0, f"phase 4f, {name}: nothing offloaded")
+        print(f"round engine, synthetic tiers, {name}, card vs CPU: rounds equal, equal summaries",
+              json.dumps(out["cuda"]))
+
+
 def main() -> int:
     import torch
 
@@ -1681,6 +1978,15 @@ def main() -> int:
     planner_phase()
     phase_done("3f (path 6)")
 
+    # ---- 3g. path 7: the fleet round on the card, one graph a round -------- #
+    eng_launches = round_engine_phase(fast, deit, ms_frames, ms_labels, ms_fabric,
+                                      {"calib_gate": cg_kernel.calib_gate,
+                                       "flash_attention": fa_kernel.flash_attention,
+                                       "int8_matmul": i8_kernel.int8_matmul,
+                                       "int8_kv_decode": kv_kernel.int8_kv_decode}, DEIT_B.n_layers)
+    engine_bench_phase()
+    phase_done("3g (path 7)")
+
     # ---- 4. card against CPU ---------------------------------------------- #
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1720,6 +2026,9 @@ def main() -> int:
 
     # ---- 4e. path 5's split fleet card against CPU ------------------------- #
     split_fleet_card_vs_cpu()
+
+    # ---- 4f. the round engine card against CPU ---------------------------- #
+    engine_card_vs_cpu()
     phase_done("4 (card against CPU)")
 
     # ---- 5. result -------------------------------------------------------- #
@@ -1729,7 +2038,8 @@ def main() -> int:
     kernels = [dict(name="calib_gate", route="cuda",
                     source="src/repro_torch/kernels/fused_calib_gate/csrc/calib_gate.cu",
                     replaces="src/repro/kernels/fused_calib_gate/kernel.py:48",
-                    launches=launches["calib_gate"] + eval_launches["calib_gate"] + tel_launches["calib_gate"],
+                    launches=(launches["calib_gate"] + eval_launches["calib_gate"] + tel_launches["calib_gate"]
+                              + eng_launches["calib_gate"]),
                     max_abs_err=cg_err,
                     ms=cg_row["ms"], plain_ms=cg_row["plain_ms"],
                     bound_ms=cg_row["bound_ms"], bound_by=cg_row["bound_by"],
@@ -1738,14 +2048,16 @@ def main() -> int:
                     source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention/kernel.py:62",
                     launches=(launches["flash_attention"] + eval_launches["flash_attention"]
-                              + tel_launches["flash_attention"]), max_abs_err=fa_err,
+                              + tel_launches["flash_attention"] + eng_launches["flash_attention"]),
+                    max_abs_err=fa_err,
                     ms=fa_row["ms"], plain_ms=fa_row["plain_ms"],
                     bound_ms=fa_row["bound_ms"], bound_by=fa_row["bound_by"],
                     library_ms=fa_row["library_ms"]),
                dict(name="int8_matmul", route="cuda",
                     source="src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",
                     replaces="src/repro/kernels/int8_matmul/kernel.py:43",
-                    launches=launches["int8_matmul"] + eval_launches["int8_matmul"] + tel_launches["int8_matmul"],
+                    launches=(launches["int8_matmul"] + eval_launches["int8_matmul"] + tel_launches["int8_matmul"]
+                              + eng_launches["int8_matmul"]),
                     max_abs_err=i8_err,
                     ms=i8_row["ms"], plain_ms=i8_row["plain_ms"],
                     bound_ms=i8_row["bound_ms"], bound_by=i8_row["bound_by"],
@@ -1754,7 +2066,7 @@ def main() -> int:
                     source="src/repro_torch/kernels/int8_kv_decode/csrc/int8_kv_decode.cu",
                     replaces="src/repro/kernels/int8_kv_decode/kernel.py:59",
                     launches=lm_launches["int8_kv_decode"] + eval_launches["int8_kv_decode"]
-                    + tel_launches["int8_kv_decode"], max_abs_err=kv_err,
+                    + tel_launches["int8_kv_decode"] + eng_launches["int8_kv_decode"], max_abs_err=kv_err,
                     ms=kv_row["ms"], plain_ms=kv_row["plain_ms"],
                     bound_ms=kv_row["bound_ms"], bound_by=kv_row["bound_by"],
                     library_ms=kv_row["library_ms"])]

@@ -7,15 +7,15 @@ float64, exactly as the reference.
 
 Bandwidth can vary with time two ways, composable:
 
-  * ``jitter`` — a per-second factor drawn from ``default_rng((seed,
-    second))`` (the reference's "pcg" mode);
+  * ``jitter`` — a per-second factor, drawn from ``default_rng((seed,
+    second))`` in the default "pcg" mode, or in ``jitter_mode="counter"``
+    from JAX's threefry counter ``fold_in(PRNGKey(seed), second)``
+    (``core/threefry.py``), the bits the round engine
+    (``serving/engine_torch.py``) derives on the device, so host and
+    device see the same channel;
   * ``trace`` — a ``net.traces.BandwidthTrace`` (piecewise-constant replay
     of a cellular or WiFi profile); when set it replaces ``bandwidth_bps``
     as the base rate and jitter multiplies on top.
-
-The reference's ``jitter_mode="counter"`` takes its bits from JAX's
-threefry generator so that its compiled round loop sees the same channel;
-it comes with that loop (ROADMAP A.9) and raises here.
 
 ``transmit`` queues one transfer; ``upload_batch`` a whole round in array
 order (the wire only: transmission-complete times), which is what the edge
@@ -30,6 +30,8 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+
+from repro_torch.core.threefry import counter_jitter_factors
 
 # cap on fixed-point sweeps before falling back to the exact serial loop
 _FIXED_POINT_SWEEPS = 50
@@ -47,7 +49,7 @@ class Uplink:
     server_time: float  # T^o
     jitter: float = 0.0  # relative bandwidth jitter
     seed: int = 0
-    jitter_mode: str = "pcg"
+    jitter_mode: str = "pcg"  # "pcg" (host rng) | "counter" (threefry, as on the device)
     trace: Optional[object] = None  # BandwidthTrace (duck-typed: .bandwidth_at, .mean_bps)
     _busy_until: float = 0.0
     _jit_keys: Optional[np.ndarray] = field(default=None, repr=False)
@@ -60,11 +62,7 @@ class Uplink:
     last_starts: Optional[np.ndarray] = field(default=None, repr=False)
 
     def __post_init__(self):
-        if self.jitter_mode == "counter":
-            raise NotImplementedError(
-                "jitter_mode='counter' needs JAX's threefry bits; it comes with the compiled"
-                " round loop (ROADMAP A.9; listed under A.7 before)")
-        if self.jitter_mode != "pcg":
+        if self.jitter_mode not in ("pcg", "counter"):
             raise ValueError(f"jitter_mode must be 'pcg' or 'counter', got {self.jitter_mode!r}")
         self._jit_keys = np.zeros(0, dtype=np.int64)
         self._jit_vals = np.zeros(0, dtype=np.float64)
@@ -73,16 +71,22 @@ class Uplink:
 
     def _jitter_factors(self, seconds: np.ndarray) -> np.ndarray:
         """Per-second factors for the requested integer seconds, cached;
-        each second's factor comes from its own ``default_rng((seed, s))``."""
+        each second's factor comes from its own ``default_rng((seed, s))``
+        or, in counter mode, its own threefry counter (float32 factors)."""
         if len(seconds) == 0:
             return np.zeros(0, dtype=np.float64)
         uniq = np.unique(seconds)
         new = uniq[~np.isin(uniq, self._jit_keys)]
         if len(new):
-            vals = np.asarray([
-                np.clip(1.0 + self.jitter *
-                        np.random.default_rng((self.seed, int(s))).standard_normal(), 0.2, 2.0)
-                for s in new])
+            if self.jitter_mode == "counter":
+                vals = counter_jitter_factors(self.seed, new, self.jitter,
+                                              device="cpu").double().numpy()
+            else:
+                vals = np.asarray([
+                    np.clip(1.0 + self.jitter *
+                            np.random.default_rng((self.seed, int(s))).standard_normal(),
+                            0.2, 2.0)
+                    for s in new])
             keys = np.concatenate([self._jit_keys, new])
             order = np.argsort(keys)
             self._jit_keys = keys[order]

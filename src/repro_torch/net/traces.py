@@ -17,8 +17,9 @@ Generators (deterministic given a seed):
   * ``regime_shift_trace`` — square wave between rate levels.
 
 Values are bytes/s inside (like ``Uplink.bandwidth_bps``); the generators
-take megabits/s at the API surface.  The reference's padded ``grid`` for a
-compiled round loop comes with that loop (ROADMAP A.9).
+take megabits/s at the API surface.  ``grid`` pads the breakpoints to a
+fixed shape for the round engine's lookup on the device
+(``serving/engine_torch.py``).
 """
 from __future__ import annotations
 
@@ -76,6 +77,21 @@ class BandwidthTrace:
             ts = np.mod(ts, self.duration)
         idx = np.searchsorted(self.t, ts, side="right") - 1
         return self.bps[np.clip(idx, 0, len(self.t) - 1)]
+
+    def grid(self, pad_to: int | None = None):
+        """Fixed-shape breakpoint grid for a lookup on the device: ``(t,
+        bps)`` float64 arrays padded to ``pad_to`` segments.  Pad
+        breakpoints sit at ``+inf`` (no finite time lands in them) and
+        repeat the last rate, so a right ``searchsorted`` minus one over the
+        padded grid returns what ``bandwidth_at`` returns over the ragged
+        one; ``EngineParams.trace_t`` / ``trace_bps`` hold this shape."""
+        n = len(self.t) if pad_to is None else int(pad_to)
+        if n < len(self.t):
+            raise ValueError(f"pad_to={n} < {len(self.t)} trace segments")
+        pad = n - len(self.t)
+        t = np.concatenate([self.t, np.full(pad, np.inf)])
+        bps = np.concatenate([self.bps, np.full(pad, self.bps[-1])])
+        return t, bps
 
     @property
     def mean_bps(self) -> float:

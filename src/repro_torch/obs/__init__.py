@@ -13,20 +13,21 @@ zero cost when off (the engine holds ``None`` and skips every hook).
     serve / transmit / fold).
 
 ``Telemetry`` is the bundle the engine consumes: pick the parts with
-flags; the server binds the fleet's dimensions at construction.  The
-reference's ``aot_split`` waits for the compiled round loop (ROADMAP A.9).
+flags; the server binds the fleet's dimensions at construction.
+``profile.aot_split`` warms up and captures the round engine's CUDA graph,
+timing the capture apart from the steady state.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
 
-from repro_torch.obs.profile import DEFAULT, PhaseProfiler
+from repro_torch.obs.profile import DEFAULT, PhaseProfiler, aot_split
 from repro_torch.obs.timeseries import FleetRecorder, relock_lags
 from repro_torch.obs.trace import FrameTracer, export_chrome_trace
 
 __all__ = ["Telemetry", "FleetRecorder", "FrameTracer", "PhaseProfiler",
-           "export_chrome_trace", "relock_lags", "DEFAULT"]
+           "export_chrome_trace", "relock_lags", "DEFAULT", "aot_split"]
 
 
 @dataclass

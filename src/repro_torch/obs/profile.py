@@ -8,16 +8,19 @@ where the engine already waits for a tier's result.  Zero cost when off:
 the engines hold ``None`` and never touch a clock.  ``summarize()`` is the
 reporting format.
 
-The reference's ``aot_split`` (the compile-vs-steady split of a jitted
-entry point) has no counterpart yet: it comes with the compiled round
-loop (ROADMAP A.9).
+``aot_split`` is the counterpart of the reference's compile-vs-steady
+split: it warms a step up and captures it as a CUDA graph (the round
+engine's, ``serving/engine_torch.py``), so capture time stays apart from
+the steady state.
 """
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
 
-__all__ = ["PhaseProfiler", "DEFAULT"]
+import torch
+
+__all__ = ["PhaseProfiler", "DEFAULT", "aot_split"]
 
 
 class PhaseProfiler:
@@ -57,6 +60,47 @@ class PhaseProfiler:
     def reset(self) -> None:
         self.totals.clear()
         self.counts.clear()
+
+
+@torch.inference_mode()
+def aot_split(fn, *state: torch.Tensor, profiler: PhaseProfiler | None = None):
+    """Warm up ``fn()`` and capture it as a CUDA graph; time both.
+
+    ``fn()`` takes no arguments and updates the tensors ``state`` in place
+    (a round step on static buffers).  The warm-up call runs eagerly and
+    makes whatever ``fn`` builds on its first call (constants, output
+    buffers); ``state`` is then restored, so the capture and its replays
+    start from the caller's state.  Returns ``(replayable, seconds)``: on
+    the card ``replayable`` replays the graph (a capture that fails raises;
+    there is no eager fallback), on the CPU it is ``fn`` itself and
+    ``seconds`` the time of its warm-up call.  With ``profiler`` the
+    seconds are also added under ``"compile"``.
+    """
+    t0 = time.perf_counter()
+    saved = [t.clone() for t in state]
+    cuda = any(t.is_cuda for t in state)
+    if cuda:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+    else:
+        fn()
+    for t, v in zip(state, saved):
+        t.copy_(v)
+    if cuda:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        torch.cuda.synchronize()
+        replay = graph.replay
+    else:
+        replay = fn
+    dt = time.perf_counter() - t0
+    if profiler is not None:
+        profiler.add("compile", dt)
+    return replay, dt
 
 
 # a process-wide profiler for callers that do not thread one through

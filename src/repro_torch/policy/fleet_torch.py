@@ -32,10 +32,18 @@ is stable (``stable=True``; boolean keys sort as uint8), every argmax the
 first maximum (built from a mask, not ``torch.argmax``), and every
 scatter unique (rows that would collide or fall out of range are masked
 first, where the reference scatters with ``mode="drop"``).  The planner
-runs eagerly: no ``torch.compile`` and no CUDA graph, so no multiply and
-add are contracted into one rounding, except in ``ewma_fold``, whose
+runs eagerly, or recorded as the same kernels in the round engine's CUDA
+graph; nothing is compiled, so no multiply and add are contracted into
+one rounding, except in ``ewma_fold``, whose
 update XLA compiles to one fused multiply-add and which the port computes
-as that FMA, exactly (``_fma``).
+as that FMA, exactly (``core.threefry.fma_f32``).
+
+Capture: nothing here copies from the host or waits for the device when
+its inputs already lie there: a spec's tables (``planner_tables``) are
+made once, before any capture, scalars are filled on the device
+(``_scalar``), and there is no boolean indexing and no ``.item()``.  So
+the round engine (``serving/engine_torch.py``) captures a planning pass in
+its CUDA graph.
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.threefry import fma_f32 as _fma
 from repro_torch.device import resolve_device
 
 __all__ = [
@@ -52,7 +61,8 @@ __all__ = [
     "pad_fleet", "unpad_fleet", "fleet_from_state", "plan_batch_from_out",
     "prune_fleet", "consume_fleet", "extend_fleet", "clear_fleet",
     "plan_fleet", "make_planner", "spec_for_policy", "planner_kind",
-    "torch_unsupported_policies", "ewma_fold", "TORCH_PLANNABLE",
+    "torch_unsupported_policies", "ewma_fold", "PlannerTables", "planner_tables",
+    "TORCH_PLANNABLE",
 ]
 
 _EPS = 1e-12  # same dominance epsilon as policy/frontier.py
@@ -122,8 +132,9 @@ def unpad_fleet(fleet: PaddedFleet):
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:
     """A Python number as a 0-d tensor of ``like``'s dtype and device: the
     conversion JAX's weak typing applies when a Python float meets an
-    array."""
-    return torch.tensor(x, dtype=like.dtype, device=like.device)
+    array.  It is filled on the device, not copied from the host, so a
+    CUDA graph can capture it."""
+    return torch.full((), x, dtype=like.dtype, device=like.device)
 
 
 def _argsort(key: torch.Tensor) -> torch.Tensor:
@@ -201,9 +212,10 @@ def extend_fleet(fleet: PaddedFleet, new_arr, new_conf, new_ok, mb) -> PaddedFle
     new_conf = torch.as_tensor(new_conf, dtype=conf.dtype, device=dev)
     new_ok = torch.as_tensor(new_ok, device=dev)
     B = new_arr.shape[1]
-    mb = torch.as_tensor(mb, dtype=torch.int32, device=dev)
-    if mb.dim() == 1:
-        mb = mb[:, None]
+    if isinstance(mb, (int, np.integer)):
+        mb = int(mb)  # a Python bound: no tensor to copy to the device
+    else:
+        mb = torch.as_tensor(mb, dtype=torch.int32, device=dev)[:, None]
     po = _argsort(~new_ok)  # pack new frames, slot order preserved
     na, nc = new_arr.gather(1, po), new_conf.gather(1, po)
     n_new = new_ok.sum(dim=1).to(torch.int32)
@@ -215,7 +227,8 @@ def extend_fleet(fleet: PaddedFleet, new_arr, new_conf, new_ok, mb) -> PaddedFle
     ni = (idx - length[:, None]).clamp(0, B - 1).long()
     out_a = torch.where(from_old, arr.gather(1, oi), na.gather(1, ni))
     out_c = torch.where(from_old, conf.gather(1, oi), nc.gather(1, ni))
-    return PaddedFleet(out_a, out_c, torch.minimum(total, mb)[:, 0].to(torch.int32))
+    lens = total.clamp_max(mb) if isinstance(mb, int) else torch.minimum(total, mb)
+    return PaddedFleet(out_a, out_c, lens[:, 0].to(torch.int32))
 
 
 def clear_fleet(fleet: PaddedFleet, mask) -> PaddedFleet:
@@ -291,6 +304,42 @@ class PlanOut(NamedTuple):
     inexact: torch.Tensor  # (S,) bool — eps-window prune disagreement possible
 
 
+class PlannerTables(NamedTuple):
+    """A spec's per-action tables on one device, made once by
+    ``planner_tables`` (before a capture: a copy from the host cannot run
+    inside one).  Frame actions first, then split actions."""
+
+    sizes: torch.Tensor  # (A,) payload bytes
+    acc: torch.Tensor  # (A,) server accuracy
+    t_dev: torch.Tensor  # (A,) device prefix seconds (0 for frames)
+    srv_frac: torch.Tensor  # (A,) fraction of T^o the reply costs (1 for frames)
+    greedy_cand: torch.Tensor  # greedy-rate's candidate resolutions, descending
+
+
+def _greedy_candidates(spec: PlannerSpec) -> list:
+    """GreedyRatePolicy's resolutions to try, from m-1 down to (but
+    excluding) the first r with ``acc_server[r] <= local_acc``: the
+    reference's inner break is static."""
+    cand = []
+    for r in range(spec.m - 1, -1, -1):
+        if spec.acc_server[r] <= spec.local_acc:
+            break
+        cand.append(r)
+    return cand
+
+
+def planner_tables(spec: PlannerSpec, device=None) -> PlannerTables:
+    """``spec``'s tables as ``spec.dtype`` tensors on ``device`` (the card
+    unless the caller passes the CPU)."""
+    dev = resolve_device(device)
+    f = lambda x: torch.tensor(x, dtype=spec.dtype, device=dev)  # noqa: E731
+    return PlannerTables(
+        sizes=f(spec.sizes + spec.split_sizes), acc=f(spec.acc_server + spec.split_acc),
+        t_dev=f((0.0,) * spec.m + spec.split_t_dev),
+        srv_frac=f((1.0,) * spec.m + spec.split_srv_frac),
+        greedy_cand=torch.tensor(_greedy_candidates(spec), dtype=torch.int64, device=dev))
+
+
 def _summarize(dec, conf, length, spec: PlannerSpec):
     """theta / r° / counters from the decision rows — ``plan_from_chain``
     and ``PlanBatch.from_offloads`` semantics: theta is the max confidence
@@ -314,19 +363,18 @@ def _no_flags(S: int, dev) -> tuple:
     return z, z.clone()
 
 
-def _plan_local(arr, conf, length, now, bw, st, spec: PlannerSpec):
+def _plan_local(arr, conf, length, now, bw, st, spec: PlannerSpec, tb: PlannerTables):
     S, L = arr.shape
     dec = torch.full((S, L), -1, dtype=torch.int8, device=arr.device)
     return (dec, torch.zeros(S, dtype=arr.dtype, device=arr.device)) + _no_flags(S, arr.device)
 
 
-def _plan_server(arr, conf, length, now, bw, st, spec: PlannerSpec):
+def _plan_server(arr, conf, length, now, bw, st, spec: PlannerSpec, tb: PlannerTables):
     """ServerPolicy.plan_many: highest resolution sustainable within both
     the frame interval and the deadline budget; offload every frame."""
     S, L = arr.shape
     m, dev = spec.m, arr.device
-    sizes = torch.tensor(spec.sizes, dtype=arr.dtype, device=dev)
-    acc = torch.tensor(spec.acc_server, dtype=arr.dtype, device=dev)
+    sizes, acc = tb.sizes[:m], tb.acc[:m]
     if isinstance(st, float):  # static T^o: Python-float math, as the reference
         tx_budget = _scalar(min(spec.frame_interval, spec.deadline - st - spec.latency), arr)
     else:  # a T^o override, dtype arithmetic
@@ -337,7 +385,7 @@ def _plan_server(arr, conf, length, now, bw, st, spec: PlannerSpec):
     r_s = (m - 1) - _first_max(feas.flip(1).to(torch.uint8))
     valid = torch.arange(L, device=dev) < length[:, None]
     take = valid & has_res[:, None]
-    dec = torch.where(take, r_s[:, None].to(torch.int8), torch.tensor(-1, dtype=torch.int8, device=dev))
+    dec = torch.where(take, r_s[:, None].to(torch.int8), torch.full((), -1, dtype=torch.int8, device=dev))
     gain = torch.where(take, acc[r_s][:, None] - conf, _scalar(0.0, conf)).sum(dim=1)
     return (dec, gain) + _no_flags(S, dev)
 
@@ -350,7 +398,7 @@ def _rtt(st, spec: PlannerSpec, like):
     return st + _scalar(spec.latency, like)
 
 
-def _plan_threshold(arr, conf, length, now, bw, st, spec: PlannerSpec):
+def _plan_threshold(arr, conf, length, now, bw, st, spec: PlannerSpec, tb: PlannerTables):
     """ThresholdPolicy.plan_many: serial acceptance in backlog order at a
     fixed resolution — the same max-plus accumulation, the same order."""
     S, L = arr.shape
@@ -375,7 +423,7 @@ def _plan_threshold(arr, conf, length, now, bw, st, spec: PlannerSpec):
     return (dec, gain) + _no_flags(S, dev)
 
 
-def _plan_cbo(arr, conf, length, now, bw, st, spec: PlannerSpec):
+def _plan_cbo(arr, conf, length, now, bw, st, spec: PlannerSpec, tb: PlannerTables):
     """``cbo_plan`` (paper Algorithm 1) with a capped fixed-shape frontier,
     every stream at once.
 
@@ -408,17 +456,14 @@ def _plan_cbo(arr, conf, length, now, bw, st, spec: PlannerSpec):
     A, F, dev = spec.n_actions, spec.frontier, arr.device
     neg, inf = _scalar(-torch.inf, arr), _scalar(torch.inf, arr)
     eps, deadline = _scalar(_EPS, arr), _scalar(spec.deadline, arr)
-    sizes = torch.tensor(spec.sizes + spec.split_sizes, dtype=arr.dtype, device=dev)
-    acc = torch.tensor(spec.acc_server + spec.split_acc, dtype=arr.dtype, device=dev)
+    sizes, acc, t_dev = tb.sizes, tb.acc, tb.t_dev
     tx = sizes / bw[:, None]  # (S, A)
     if spec.split_sizes:
-        t_dev = torch.tensor((0.0,) * spec.m + spec.split_t_dev, dtype=arr.dtype, device=dev)
-        srv_frac = torch.tensor((1.0,) * spec.m + spec.split_srv_frac, dtype=arr.dtype, device=dev)
+        srv_frac = tb.srv_frac
         st_t = st if torch.is_tensor(st) else _scalar(st, arr)
         rtt = st_t * srv_frac + _scalar(spec.latency, arr)  # (A,)
         static_t = tx <= deadline - rtt - t_dev
-    else:
-        t_dev = torch.zeros(A, dtype=arr.dtype, device=dev)
+    else:  # t_dev is all zeros
         rtt = _rtt(st, spec, arr)
         # static: ``deadline - rtt`` in Python, one cast; override: dtype
         thr = _scalar(spec.deadline - rtt, arr) if isinstance(rtt, float) else deadline - rtt
@@ -429,10 +474,9 @@ def _plan_cbo(arr, conf, length, now, bw, st, spec: PlannerSpec):
     # confidence-descending stable order, invalid slots last
     order = _argsort(-torch.where(valid, conf, neg))
 
-    cand_parent = torch.cat([torch.arange(F, device=dev),
-                             torch.arange(F, device=dev).repeat_interleave(A)])
-    cand_res = torch.cat([torch.full((F,), -1, dtype=torch.int64, device=dev),
-                          torch.arange(A, device=dev).repeat(F)])
+    exp = torch.arange(F * A, device=dev)  # expansions, state-major / action-minor
+    cand_parent = torch.cat([torch.arange(F, device=dev), exp // A])
+    cand_res = torch.cat([torch.full((F,), -1, dtype=torch.int64, device=dev), exp % A])
     rows = torch.arange(S, device=dev)[:, None]
 
     f_t = torch.full((S, F), torch.inf, dtype=arr.dtype, device=dev)
@@ -485,7 +529,7 @@ def _plan_cbo(arr, conf, length, now, bw, st, spec: PlannerSpec):
     return f_dec[rows[:, 0], best], gain, overflow, inexact
 
 
-def _plan_greedy_rate(arr, conf, length, now, bw, st, spec: PlannerSpec):
+def _plan_greedy_rate(arr, conf, length, now, bw, st, spec: PlannerSpec, tb: PlannerTables):
     """GreedyRatePolicy._plan: per frame in backlog order, walk resolutions
     from the highest down, stop at the first whose server accuracy no longer
     beats the local tier, offload at the first that also meets the
@@ -494,18 +538,10 @@ def _plan_greedy_rate(arr, conf, length, now, bw, st, spec: PlannerSpec):
     m, dev = spec.m, arr.device
     rtt = _rtt(st, spec, arr)
     rtt = rtt if torch.is_tensor(rtt) else _scalar(rtt, arr)
-    # the descending prefix from m-1 down to (but excluding) the first r
-    # with acc_server[r] <= local_acc: the reference's inner break is static
-    cand = []
-    for r in range(m - 1, -1, -1):
-        if spec.acc_server[r] <= spec.local_acc:
-            break
-        cand.append(r)
-    if not cand:
-        return _plan_local(arr, conf, length, now, bw, st, spec)
-    cand_idx = torch.tensor(cand, dtype=torch.int64, device=dev)  # descending r
-    sizes = torch.tensor(spec.sizes, dtype=arr.dtype, device=dev)
-    acc = torch.tensor(spec.acc_server, dtype=arr.dtype, device=dev)
+    cand_idx = tb.greedy_cand  # descending r
+    if not cand_idx.shape[0]:
+        return _plan_local(arr, conf, length, now, bw, st, spec, tb)
+    sizes, acc = tb.sizes[:m], tb.acc[:m]
     tx = sizes[cand_idx] / bw[:, None]  # (S, n_cand)
     valid = torch.arange(L, device=dev) < length[:, None]
     deadline = _scalar(spec.deadline, arr)
@@ -534,14 +570,17 @@ _PLANNERS = {
 
 
 @torch.inference_mode()
-def plan_fleet(spec: PlannerSpec, fleet: PaddedFleet, now, bw, server_time=None) -> PlanOut:
+def plan_fleet(spec: PlannerSpec, fleet: PaddedFleet, now, bw, server_time=None,
+               tables: Optional[PlannerTables] = None) -> PlanOut:
     """One planning pass over every stream, on the fleet's device.
 
     ``bw`` must already carry the 1 byte/s floor (``FleetRunner.env_batch``
     applies it); ``now`` is each stream's first valid arrival this round.
     ``server_time`` overrides the spec's nominal T^o with a ``spec.dtype``
     scalar (the occupancy-calibrated estimate under a batching slow tier);
-    ``None`` keeps the nominal, in Python-float arithmetic.
+    ``None`` keeps the nominal, in Python-float arithmetic.  ``tables``
+    are ``planner_tables(spec)`` on the fleet's device, made here when not
+    given (a capture needs them made before).
     """
     arr, conf, length = fleet
     dev = arr.device
@@ -549,7 +588,9 @@ def plan_fleet(spec: PlannerSpec, fleet: PaddedFleet, now, bw, server_time=None)
     bw = torch.as_tensor(bw, dtype=spec.dtype, device=dev)
     st = spec.server_time if server_time is None \
         else torch.as_tensor(server_time, dtype=spec.dtype, device=dev)
-    dec, gain, ovf, inx = _PLANNERS[spec.kind](arr, conf, length, now, bw, st, spec)
+    if tables is None:
+        tables = planner_tables(spec, dev)
+    dec, gain, ovf, inx = _PLANNERS[spec.kind](arr, conf, length, now, bw, st, spec, tables)
     theta, r0, n_off, base = _summarize(dec, conf, length, spec)
     return PlanOut(dec=dec, theta=theta, resolution=r0, n_offloads=n_off,
                    total_gain=gain, base_acc=base, n_frames=length,
@@ -560,12 +601,14 @@ def make_planner(spec: PlannerSpec, device=None):
     """``plan_fleet`` closed over the spec, on ``device`` (the card unless
     the caller passes the CPU; without a GPU that raises).  The optional
     4th argument is a ``server_time`` override (``None`` for the spec's
-    nominal).  It runs eagerly: nothing is compiled or captured."""
+    nominal).  It runs eagerly: nothing is compiled or captured.  The
+    spec's tables are made once, here."""
     dev = resolve_device(device)
+    tables = planner_tables(spec, dev)
 
     def planner(fleet: PaddedFleet, now, bw, server_time=None) -> PlanOut:
         fleet = PaddedFleet(*(x.to(dev) for x in fleet))
-        return plan_fleet(spec, fleet, now, bw, server_time)
+        return plan_fleet(spec, fleet, now, bw, server_time, tables)
 
     return planner
 
@@ -684,22 +727,6 @@ def plan_batch_from_out(out: PlanOut, n_streams: int, m: int):
 # --------------------------------------------------------------------------- #
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` for float32 tensors with one rounding, as a fused
-    multiply-add gives it: the product is exact in float64 (24 x 24
-    bits), the float64 sum is rounded to odd (TwoSum's error term says
-    which way the nearest rounding went) and then to float32, which is the
-    correctly rounded result since 53 >= 24 + 2."""
-    p = a.double() * b.double()
-    q = c.double()
-    s = p + q
-    bb = s - p
-    err = (p - (s - bb)) + (q - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    odd = torch.nextafter(s, torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype))
-    return torch.where((err != 0) & even, odd, s).to(torch.float32)
-
-
 @torch.inference_mode()
 def ewma_fold(bw_est, alpha: float, stream, rate, ok, n_streams: int, depth: int):
     """Fold one round's transfer observations into the (S,) EWMA vector —
@@ -734,16 +761,19 @@ def ewma_fold(bw_est, alpha: float, stream, rate, ok, n_streams: int, depth: int
     is_first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                           s_sorted[1:] != s_sorted[:-1]])
     rank = idx - _cummax(torch.where(is_first, idx, 0))
-    s_ok = s_sorted[ok_sorted]
-    counts = torch.zeros(n_streams, dtype=torch.int64, device=dev).index_add_(
-        0, s_ok, torch.ones_like(s_ok))
+    # rows that are not ok count into a spare last slot, so nothing here
+    # depends on how many are ok (no boolean indexing, no host sync)
+    sink = torch.where(ok_sorted, s_sorted, n_streams)
+    counts = torch.zeros(n_streams + 1, dtype=torch.int64, device=dev).index_add_(
+        0, sink, torch.ones_like(sink))[:n_streams]
     # one writer a cell: an over-deep stream's last observation wins its
-    # last column, the others there are dropped
+    # last column, the others there are dropped (into the spare row)
     cnt = counts[s_sorted.clamp(0, n_streams - 1)]
     last = (rank < depth - 1) | (rank == cnt - 1)
     w = ok_sorted & last
-    grid = torch.zeros((n_streams, depth), dtype=bw_est.dtype, device=dev)
-    grid[s_sorted[w], torch.clamp_max(rank[w], depth - 1)] = r_sorted[w]
+    cell = torch.where(w, sink * depth + torch.clamp_max(rank, depth - 1), n_streams * depth)
+    grid = torch.zeros((n_streams + 1) * depth, dtype=bw_est.dtype, device=dev).scatter_(
+        0, cell, torch.where(w, r_sorted, 0.0))[:n_streams * depth].view(n_streams, depth)
     one_minus_a, a = _scalar(1 - alpha, bw_est), _scalar(alpha, bw_est)
     bw = bw_est
     for k in range(depth):

@@ -23,9 +23,14 @@ slow-tier call and one fabric transmit.  Without a fabric, the ``uplink``
 argument becomes the degenerate 1-cell/1-replica fabric, the shared-uplink
 pipeline bit for bit.
 
-The tiers run on ``device`` (``cuda`` unless the caller passes ``"cpu"``);
-the planner, the uplink, the fabric, the metrics and the telemetry
-(``obs/``) stay on the host in float64, as the reference's numpy engine.
+The tiers run on ``device`` (``cuda`` unless the caller passes ``"cpu"``).
+With ``backend="numpy"`` the planner, the uplink, the fabric, the metrics
+and the telemetry (``obs/``) stay on the host in float64, as the
+reference's numpy engine; with ``backend="torch"`` the whole round runs on
+``device`` as well (``serving/engine_torch.py``): the tiers are
+precomputed for every round first, then one CUDA graph replay a round
+advances the fleet, and the final state is folded back into the host
+objects.
 """
 from __future__ import annotations
 
@@ -161,9 +166,9 @@ class MultiStreamServer:
     Python.  ``round_hook``, when set, is called with one dict per round
     (the reference's keys).  ``telemetry`` (``obs.Telemetry``) adds a
     per-round recorder, a frame tracer and a phase profiler; ``None`` is
-    the zero-cost path.  Only the reference's numpy round loop is ported:
-    ``backend`` other than ``"numpy"`` raises (the compiled round loop,
-    ROADMAP A.9).
+    the zero-cost path.  ``backend="torch"`` runs the round loop on
+    ``device`` (the reference's ``backend="jax"``; configurations it cannot
+    express raise at construction, ``engine_torch.torch_unsupported``).
     """
 
     def __init__(self, cfg: ServeConfig, fast_forward: Callable, slow_forward: Callable,
@@ -173,10 +178,13 @@ class MultiStreamServer:
                  backend: str = "numpy", telemetry=None, device=None):
         if n_streams < 1:
             raise ValueError("n_streams must be >= 1")
-        if backend != "numpy":
+        if backend == "jax":
             raise NotImplementedError(
-                f"backend={backend!r}: only the numpy round loop is ported; the compiled"
-                " round loop (engine_jax) is not (ROADMAP A.9)")
+                "backend='jax' is the reference's compiled round loop; the port's is"
+                " backend='torch' (ROADMAP A.9)")
+        if backend not in ("numpy", "torch"):
+            raise ValueError(f"backend must be 'numpy' or 'torch', got {backend!r}")
+        self.backend = backend
         self.device = resolve_device(device)
         self.round_hook = None
         self.cfg = cfg
@@ -225,6 +233,13 @@ class MultiStreamServer:
                            n_replicas=fabric.n_replicas,
                            n_actions=self.fleet.action_table.n_actions)
             self.fleet.profiler = telemetry.profiler
+        if backend == "torch":
+            from repro_torch.serving.engine_torch import torch_unsupported
+
+            reasons = torch_unsupported(self)
+            if reasons:
+                raise ValueError("backend='torch' cannot express this configuration: "
+                                 + "; ".join(reasons))
 
     @torch.inference_mode()
     def process_streams(self, frames: np.ndarray, labels: Optional[np.ndarray] = None,
@@ -245,6 +260,8 @@ class MultiStreamServer:
         if schedule.n_streams != S or schedule.n_frames != frames.shape[1]:
             raise ValueError("schedule shape must match frames (S, N)")
         self.metrics.wall_time = schedule.horizon
+        if self.backend == "torch":
+            return self._process_streams_torch(frames, labels, schedule)
         # telemetry hooks: host clocks only, no device synchronization; a
         # phase holds device time where the round already waits for it
         tel = self.telemetry
@@ -403,5 +420,169 @@ class MultiStreamServer:
                     "valid": valid.copy(), "correct": np.asarray(correct).copy(),
                     "bw_est": self.fleet.bw_est.copy(),
                     "lengths": self.fleet.state.lengths.copy(),
+                })
+        return self.metrics
+
+    def _process_streams_torch(self, frames, labels, schedule) -> AggregateMetrics:
+        """Round engine on ``device``: precompute the tiers of every round
+        there (one fast pass, and the slow tier at each resolution over
+        every frame, compared with the labels in place), stack the rounds'
+        inputs, run one CUDA graph replay a round (``engine_torch``), then
+        fold the final state back into the host objects.  Decisions are
+        held to the numpy path by ``tests/test_torch_engine.py``."""
+        from repro_torch.policy.fleet_torch import unpad_fleet
+        from repro_torch.serving import engine_torch as et
+
+        cfg = self.cfg
+        S, B, dev = self.n_streams, cfg.batch_size, self.device
+        resolutions = np.asarray(cfg.resolutions)
+        m = len(resolutions)
+        tel = self.telemetry
+        rec = tel.recorder if tel is not None else None
+        prof = tel.profiler if tel is not None else None
+        spec = et.spec_from_server(self, collect="trace" if self.round_hook is not None else "metrics",
+                                   telemetry=rec is not None)
+        params = et.params_from_server(self, spec, device=dev)
+        dt = spec.planner.dtype
+
+        # precompute on the device: both tiers are deterministic per frame,
+        # so this equals the numpy path's escalated-only batching
+        t0 = time.perf_counter() if prof is not None else 0.0
+        rounds, host_rounds = [], []
+        for start, arr, valid in schedule.rounds(B):
+            b = arr.shape[1]
+            flat = torch.as_tensor(frames[:, start : start + b].reshape(S * b, *frames.shape[2:]),
+                                   device=dev)
+            fp, cf = fast_pass(self.fast_forward, self.calibrate, flat,
+                               use_fused=cfg.use_fused, platt_ab=cfg.platt_ab)
+            conf = cf.reshape(S, b).to(dt)
+            fast_ok = torch.zeros((S, b), dtype=torch.bool, device=dev)
+            slow_ok = torch.zeros((S, b, m), dtype=torch.bool, device=dev)
+            if labels is not None:
+                lab = torch.as_tensor(labels[:, start : start + b], device=dev)
+                fast_ok = fp.reshape(S, b) == lab
+                slow_ok = torch.stack([
+                    slow_pass_multires(self.slow_forward, flat, np.full(S * b, r)).reshape(S, b) == lab
+                    for r in resolutions], dim=-1)
+            pad = B - b
+            arr_t = torch.as_tensor(np.pad(arr, ((0, 0), (0, pad)), constant_values=np.inf),
+                                    device=dev).to(dt)
+            valid_t = torch.as_tensor(np.pad(valid, ((0, 0), (0, pad))), device=dev)
+            rounds.append((arr_t, valid_t,
+                           torch.nn.functional.pad(conf, (0, pad), value=torch.inf),
+                           torch.nn.functional.pad(fast_ok, (0, pad)),
+                           torch.nn.functional.pad(slow_ok, (0, 0, 0, pad))))
+            host_rounds.append((start, b, arr, valid))
+        if prof is not None:
+            prof.add("precompute", time.perf_counter() - t0)
+        if not rounds:
+            return self.metrics
+        inputs = et.RoundInputs(*(torch.stack(col) for col in zip(*rounds)))
+        carry, ys = et.simulate(spec, params, inputs, profiler=prof)
+        if carry.fp_bad is not None and bool(carry.fp_bad):
+            import warnings
+
+            warnings.warn(
+                "a time-varying uplink fixed point failed to settle inside the round "
+                "engine; the numpy reference would have used its exact serial "
+                "fallback, so results may diverge", RuntimeWarning)
+
+        # fold the per-round counters and latencies into the same
+        # AggregateMetrics, and the final state into the host objects
+        t0 = time.perf_counter() if prof is not None else 0.0
+        cells, pool = self.fabric.cells, self.fabric.pool
+        base_cb = np.asarray([c.uplink.busy_seconds for c in cells])
+        base_cq = np.asarray([c.uplink.queued_seconds for c in cells])
+        base_rb, base_rq = pool.busy_seconds.copy(), pool.queued_seconds.copy()
+        base_ctr = (self.metrics._frames.copy(), self.metrics._offloaded.copy(),
+                    self.metrics._missed.copy(), self.metrics._correct.copy())
+        def to_np(t, dtype=None):
+            a = t.cpu().numpy()
+            return a if dtype is None else a.astype(dtype)
+
+        off, miss, corr = to_np(ys.off_counts), to_np(ys.miss_counts), to_np(ys.correct)
+        lat = to_np(ys.lat, np.float64)
+        for i, (start, b, arr, valid) in enumerate(host_rounds):
+            self.metrics.update_round(valid.sum(axis=1), off[i], miss[i], corr[i],
+                                      lat[i][:, :b], valid)
+        for c, cell in enumerate(cells):
+            cell.uplink._busy_until = float(carry.cell_busy[c])
+            cell.uplink.n_transfers += int(carry.cell_n[c])
+            cell.uplink.busy_seconds += float(carry.cell_busy_s[c])
+            cell.uplink.queued_seconds += float(carry.cell_queued_s[c])
+        pool.busy_until[:] = to_np(carry.rep_busy, np.float64)
+        pool.n_jobs += to_np(carry.rep_n, np.int64)
+        pool.busy_seconds += to_np(carry.rep_busy_s, np.float64)
+        pool.queued_seconds += to_np(carry.rep_queued_s, np.float64)
+        pool.avg_batch = float(carry.avg_batch)  # occupancy EWMA (1.0 = serial)
+        self.fabric.placement._next = int(carry.rr_next)
+        self.fleet.bw_est[:] = to_np(carry.bw_est, np.float64)
+        arr_f, conf_f, lens = unpad_fleet(carry.fleet)
+        st = self.fleet.state
+        st.arrival = arr_f.astype(np.float64)
+        st.conf = conf_f.astype(np.float64)
+        st.stream_id = np.repeat(np.arange(S), lens)
+        st._rebuild_offsets()
+        if prof is not None:
+            prof.add("fold", time.perf_counter() - t0)
+
+        if rec is not None:
+            # the stacked telemetry columns into the recorder: cumulative
+            # counters from host cumsums of the per-round integer columns
+            # (numpy's running sums exactly), t and bw_true recomputed on the
+            # host from the same float64 arrival grid
+            frames_c = base_ctr[0] + np.cumsum([v.sum(axis=1) for _, _, _, v in host_rounds], axis=0)
+            off_c = base_ctr[1] + np.cumsum(off, axis=0, dtype=np.int64)
+            miss_c = base_ctr[2] + np.cumsum(miss, axis=0, dtype=np.int64)
+            corr_c = base_ctr[3] + np.cumsum(corr, axis=0, dtype=np.int64)
+            bw_ts = to_np(ys.ts_bw_est, np.float64)
+            hist_ts = to_np(ys.ts_off_hist, np.int64)
+            cb = base_cb + to_np(ys.ts_cell_busy_s, np.float64)
+            cq = base_cq + to_np(ys.ts_cell_queued_s, np.float64)
+            rb = base_rb + to_np(ys.ts_rep_busy_s, np.float64)
+            rq = base_rq + to_np(ys.ts_rep_queued_s, np.float64)
+            ab = to_np(ys.ts_avg_batch, np.float64)
+            st_ts = to_np(ys.ts_st_est, np.float64)
+            for i, (_, _, arr, _) in enumerate(host_rounds):
+                fin = arr[np.isfinite(arr)]
+                t_round = float(fin.min()) if len(fin) else np.nan
+                rec.record_round(
+                    t=t_round, frames=frames_c[i], offloads=off_c[i],
+                    misses=miss_c[i], correct=corr_c[i], bw_est=bw_ts[i],
+                    bw_true=self.fabric.true_bandwidth(t_round),
+                    cell_busy_s=cb[i], cell_queued_s=cq[i],
+                    rep_busy_s=rb[i], rep_queued_s=rq[i],
+                    avg_batch=ab[i], server_time=st_ts[i],
+                    action_off=hist_ts[i])
+
+        if self.round_hook is not None:
+            act = self.fleet.action_table
+            y = {k: to_np(v) for k, v in ys._asdict().items() if v is not None}
+            for i, (start, b, _, valid) in enumerate(host_rounds):
+                dec = y["dec"][i]
+                off_s, off_p = np.nonzero(dec >= 0)
+                a = dec[off_s, off_p]
+                self.round_hook({
+                    "start": start,
+                    "theta": y["theta"][i].astype(np.float64),
+                    "res_idx": y["res_idx"][i].astype(np.int64),
+                    "cap": y["cap"][i].astype(np.int64),
+                    "n_off": y["n_off"][i].astype(np.int64),
+                    "n_frames": y["n_frames"][i].astype(np.int64),
+                    "off_stream": off_s.astype(np.int64),
+                    "off_pos": off_p.astype(np.int64),
+                    "off_res": a.astype(np.int64),
+                    # from the shared table: the decision grid holds the action index
+                    "off_kind": act.kind[a].astype(np.int8),
+                    "off_cut": act.cut[a].astype(np.int64),
+                    "esc": y["esc"][i][:, :b],
+                    "ok": y["ok"][i][:, :b],
+                    "lat": lat[i][:, :b],
+                    "valid": valid,
+                    "correct": corr[i].astype(np.int64),
+                    "bw_est": y["bw_est"][i].astype(np.float64),
+                    "lengths": y["lengths"][i].astype(np.int64),
+                    "overflow": y["overflow"][i],
+                    "inexact": y["inexact"][i],
                 })
         return self.metrics

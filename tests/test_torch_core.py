@@ -189,9 +189,11 @@ def test_uplink_matches_reference(kind):
 
 
 def test_uplink_counter_jitter_not_ported():
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tnet.Uplink(bandwidth_bps=1e5, latency=0.0, server_time=0.0, jitter=0.1,
-                    jitter_mode="counter")
+    # counter mode is ported since the round engine (core/threefry.py):
+    # it draws the reference's per-second factors, bit for bit
+    kw = dict(bandwidth_bps=1e5, latency=0.0, server_time=0.0, jitter=0.1, jitter_mode="counter")
+    t = np.array([0.25, 1.5, 7.0, 7.9])
+    np.testing.assert_array_equal(tnet.Uplink(**kw).bandwidth_at(t), jnet.Uplink(**kw).bandwidth_at(t))
     with pytest.raises(ValueError, match="jitter_mode"):
         tnet.Uplink(bandwidth_bps=1e5, latency=0.0, server_time=0.0, jitter_mode="x")
 

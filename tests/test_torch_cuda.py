@@ -24,7 +24,12 @@ bfloat16 q (one bf16 step of the output where the two f32 results straddle
 a rounding); bit for bit from call to call and under CUDA-graph replay;
 through a stablelm-smoke
 prefill and int8-fold decode, card against CPU, the logits within 1e-4
-and the greedy tokens equal.
+and the greedy tokens equal.  The round engine (``serving/engine_torch.py``)
+on the card against the CPU: integer outputs equal, floats within the
+differential tolerances (``cumsum`` is a parallel scan on the card); its
+step syncs nothing with the host and its CUDA-graph replay equals the
+eager step bit for bit; the counter-jitter factors and every normal
+bit-equal on both devices.
 """
 import numpy as np
 import pytest
@@ -727,3 +732,181 @@ def test_fleet_segment_ops_and_ewma_card_match_cpu(cuda_device):
         out[dev.type] = [x.cpu().numpy() for f in res for x in f] + [fold.cpu().numpy()]
     for a, b in zip(out["cuda"], out["cpu"]):
         assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def _engine_case(S, dev, *, R=4, batch=8, backlog=8, live=False, varying=False):
+    """``bench_fleet_control.py::bench_jax_one``'s synthetic rounds (cbo,
+    6 Mbps) on ``dev``: one cell and replica, or (``live``) two cells,
+    two replicas batching continuously with jsq placement, and
+    (``varying``) a traced cell and a counter-jittered one."""
+    from repro_torch.core.netsim import mbps, payload_sizes, png_size_model
+    from repro_torch.net.traces import regime_shift_trace
+    from repro_torch.policy.fleet_torch import spec_for_policy
+    from repro_torch.policy.registry import make_policy
+    from repro_torch.serving import engine_torch as et
+
+    sizes = payload_sizes(png_size_model, np.asarray((4, 8)))
+    planner = spec_for_policy(make_policy("cbo", max_backlog=backlog), sizes=sizes,
+                              acc_server=(0.7, 0.99), deadline=0.2, latency=0.05, server_time=0.037)
+    C = K = 2 if (live or varying) else 1
+    kw = dict(n_streams=S, batch=batch, n_cells=C, n_replicas=K, planner=planner,
+              collect="trace", telemetry=True)
+    extra = {}
+    if live:
+        kw.update(placement="jsq", serial_replicas=True, batch_kind="linear",
+                  batch_coeffs=(0.03125, 0.0078125), batch_window=0.03125)
+    if varying:
+        kw.update(varying=True, cell_jitter=(0.0, 0.3), cell_seed=(0, 1), cell_trace=(True, False),
+                  cell_loop=(True, False))
+        t, bps = regime_shift_trace(levels_mbps=(20.0, 4.0), period=0.75).grid(pad_to=4)
+        extra = dict(trace_t=np.stack([t, np.r_[0.0, np.full(3, np.inf)]]),
+                     trace_bps=np.stack([bps, np.full(4, mbps(6.0))]), trace_dur=[1.5, np.inf])
+    spec = et.EngineSpec(**kw)
+    bw = mbps(6.0)
+    rng = np.random.default_rng(0)
+    base = (np.arange(R * batch, dtype=np.float32) / 32.0).reshape(R, 1, batch)
+    cols = (np.broadcast_to(base, (R, S, batch)).copy(), np.ones((R, S, batch), bool),
+            rng.uniform(0.0, 1.0, (R, S, batch)).astype(np.float32),
+            rng.random((R, S, batch)) < 0.7, rng.random((R, S, batch, 2)) < 0.9)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev).float()  # noqa: E731
+    params = et.EngineParams(
+        sizes=f(sizes), cell_bw=f([bw] * C), cell_of=torch.as_tensor(np.arange(S) % C, device=dev),
+        replica_st=f([0.037, 0.0555][:K]), stream_bw=f(np.full(S, bw)), weights=f(np.ones(S)),
+        bw_init=f(np.full(S, bw)), **{k: f(v) for k, v in extra.items()})
+    inputs = et.RoundInputs(*(torch.as_tensor(c, device=dev) for c in cols))
+    return spec, params, inputs
+
+
+def _engine_outputs(carry, ys):
+    from repro_torch.serving import engine_torch as et
+
+    names = [f"carry{i}" for i in range(len(et._leaves(carry)))] + \
+        [k for k, v in ys._asdict().items() if v is not None]
+    return dict(zip(names, (t.cpu().numpy() for t in et._leaves(carry) + et._leaves(ys))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain", "live", "varying"])
+def test_round_engine_card_matches_cpu(cuda_device, case):
+    """The round engine on the card (one CUDA-graph replay a round) against
+    the same engine on the CPU: integer outputs equal, floats within the
+    differential tolerances (``cumsum`` is a parallel scan on the card)."""
+    from repro_torch.serving import engine_torch as et
+
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        spec, params, inputs = _engine_case(64, dev, live=case == "live", varying=case == "varying")
+        out[dev.type] = _engine_outputs(*et.simulate(spec, params, inputs))
+    for k, a in out["cpu"].items():
+        b = out["cuda"][k]
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(b, a, rtol=1e-2, atol=1e-4, err_msg=k)
+        else:
+            assert np.array_equal(a, b), k
+    assert out["cpu"]["off_counts"].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain", "live", "varying"])
+def test_round_engine_step_syncs_nothing_and_replays_as_eager(cuda_device, case):
+    """No host synchronization inside a round on the card (the step under
+    ``set_sync_debug_mode("error")``), and the captured graph's rounds equal
+    the eager step's bit for bit."""
+    from repro_torch.serving import engine_torch as et
+
+    spec, params, inputs = _engine_case(64, cuda_device, live=case == "live", varying=case == "varying")
+    eager = et.RoundLoop(spec, params, et.init_carry(spec, params), inputs)
+    eager.step()  # first call: constants and output buffers
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(eager.n_rounds - 1):
+            eager.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graphed = et.simulate(spec, params, inputs)
+    a, b = _engine_outputs(eager.carry, eager.ys), _engine_outputs(*graphed)
+    for k in a:
+        assert np.array_equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_round_engine_graph_runs_bit_equal_at_fleet_scale(cuda_device):
+    """Two graph runs of the same rounds over 800,000 rows (100,000
+    streams x 8) give the same bits: the engine's float running sums have
+    one association on the card (``_log_step_scan``); torch's CUDA
+    ``cumsum`` does not at this size."""
+    from repro_torch.serving import engine_torch as et
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.rand(1 << 23, generator=g, device=cuda_device)
+    assert torch.equal(et._cumsum(x), et._cumsum(x))
+    outs = []
+    for _ in range(2):
+        spec, params, inputs = _engine_case(100_000, cuda_device, R=2)
+        outs.append(_engine_outputs(*et.simulate(spec, params, inputs)))
+    for k, a in outs[0].items():
+        assert np.array_equal(a, outs[1][k]), k
+    assert outs[0]["off_counts"].sum() > 0
+
+
+@pytest.mark.cuda
+def test_counter_jitter_factors_card_bit_equal_cpu(cuda_device):
+    from repro_torch.core.threefry import counter_jitter_factors, normal_from_bits
+
+    secs = torch.arange(65536, dtype=torch.int64)
+    for seed, jitter in ((0, 0.3), (7, 0.2), (12345, 0.25)):
+        cpu = counter_jitter_factors(seed, secs, jitter)
+        card = counter_jitter_factors(seed, secs.to(cuda_device), jitter)
+        assert card.is_cuda and torch.equal(card.cpu(), cpu)
+    bits = torch.arange(2**23, dtype=torch.int64) << 9  # every uniform
+    assert torch.equal(normal_from_bits(bits.to(cuda_device)).cpu(), normal_from_bits(bits))
+
+
+@pytest.mark.cuda
+def test_threefry_defaults_to_the_card(cuda_device):
+    """``prng_key`` and ``counter_jitter_factors`` of host seconds, given no
+    device, land on the card and equal the CPU's."""
+    from repro_torch.core.threefry import counter_jitter_factors, prng_key
+
+    assert prng_key(12345).is_cuda
+    assert torch.equal(prng_key(12345).cpu(), prng_key(12345, device="cpu"))
+    card = counter_jitter_factors(7, np.arange(4096), 0.3)
+    assert card.is_cuda
+    assert torch.equal(card.cpu(), counter_jitter_factors(7, np.arange(4096), 0.3, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_multistream_torch_backend_defaults_to_the_card(cuda_device):
+    """``MultiStreamServer(backend="torch")`` with no device runs on the card,
+    and its rounds equal the same server's on the CPU in every integer
+    field, over a counter-jittered 2-cell fabric."""
+    from _diff import assert_round_equal
+
+    from repro_torch.core.netsim import Uplink, mbps
+    from repro_torch.net import EdgeFabric, ReplicaPool
+    from repro_torch.serving import FairScheduler, MultiStreamServer, ServeConfig
+    from repro_torch.serving.synthetic import synthetic_streams, synthetic_tiers
+
+    S = 6
+    imgs, labels = synthetic_streams(S, 48, seed=3)
+    recs, metrics = {}, {}
+    for dev in (None, "cpu"):
+        fast, slow, cal = synthetic_tiers()
+        cfg = ServeConfig(resolutions=(4, 8), acc_server=(0.7, 0.99), batch_size=16,
+                          frame_rate=32.0, deadline=0.2)
+        ups = [Uplink(bandwidth_bps=mbps(30.0), latency=0.05, server_time=cfg.server_time, seed=c,
+                      jitter=0.3, jitter_mode="counter") for c in range(2)]
+        pool = ReplicaPool(2, np.array([cfg.server_time, cfg.server_time * 1.5]), serial=True)
+        srv = MultiStreamServer(cfg, fast, slow, cal, None, n_streams=S,
+                                scheduler=FairScheduler("round_robin"),
+                                fabric=EdgeFabric(ups, pool, n_streams=S, placement="jsq"),
+                                backend="torch", device=dev)
+        assert srv.device.type == ("cuda" if dev is None else "cpu")
+        r = []
+        srv.round_hook = r.append
+        metrics[dev] = srv.process_streams(imgs, labels)
+        recs[dev] = r
+    for i, (a, b) in enumerate(zip(recs["cpu"], recs[None])):
+        assert_round_equal(a, b, ctx=f"round {i}")
+    assert metrics["cpu"].summary() == metrics[None].summary()

@@ -96,8 +96,12 @@ def test_uplink_transfers_and_counters_bit_equal(jitter):
 
 
 def test_uplink_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tnet.Uplink(1e6, 0.05, 0.037, jitter=0.1, jitter_mode="counter")
+    with pytest.raises(ValueError, match="jitter_mode"):
+        tnet.Uplink(1e6, 0.05, 0.037, jitter=0.1, jitter_mode="philox")
+    # counter-mode jitter is ported (core/threefry.py): the reference's factors
+    up = tnet.Uplink(1e6, 0.05, 0.037, jitter=0.1, jitter_mode="counter")
+    ref = jnet.Uplink(1e6, 0.05, 0.037, jitter=0.1, jitter_mode="counter")
+    assert up.bandwidth_at(np.array([0.5, 7.0])).tolist() == ref.bandwidth_at(np.array([0.5, 7.0])).tolist()
     # bandwidth traces are ported: a trace-driven uplink constructs and runs
     up = tnet.Uplink(1e6, 0.05, 0.037, trace=tfab.regime_shift_trace())
     assert up.bandwidth_at(np.array([0.0, 10.0])).tolist() == [2.5e6, 2.5e5]
@@ -494,8 +498,11 @@ def test_multistream_refuses_what_is_not_ported():
     up = tnet.Uplink(bandwidth_bps=tnet.mbps(50.0), latency=0.05, server_time=cfg.server_time)
     with pytest.raises(NotImplementedError, match="A.9"):
         tsrv.MultiStreamServer(cfg, fast, slow, cal, up, n_streams=2, backend="jax", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tsrv.MultiStreamServer(cfg, fast, slow, cal, up, n_streams=2, backend="torch", device="cpu")
+    with pytest.raises(ValueError, match="backend"):
+        tsrv.MultiStreamServer(cfg, fast, slow, cal, up, n_streams=2, backend="tpu", device="cpu")
+    # the round engine is ported: backend="torch" constructs on the CPU
+    assert tsrv.MultiStreamServer(cfg, fast, slow, cal, up, n_streams=2, backend="torch",
+                                  device="cpu").backend == "torch"
     with pytest.raises(ValueError):
         tsrv.MultiStreamServer(cfg, fast, slow, cal, None, n_streams=2, device="cpu")
     with pytest.raises(ValueError):

@@ -20,6 +20,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import repro.core.netsim as jnet
 import repro.net as jfab
@@ -142,7 +143,13 @@ def test_profiler_and_bundle_match_reference():
     assert tel.recorder is rec and tel.tracer is tr and tel.profiler is pr
     off = tobs.Telemetry(record=False).bind(n_streams=1, n_cells=1, n_replicas=1, n_actions=1)
     assert off.recorder is None and off.tracer is None and off.profiler is None
-    assert not hasattr(tobs, "aot_split")  # the compile split waits for the compiled loop
+    # the compile split: a CPU step runs eagerly, its warm-up call timed and its state restored
+    state = torch.zeros(3)
+    step = lambda: state.add_(1.0)  # noqa: E731
+    prof = tobs.PhaseProfiler()
+    replay, seconds = tobs.aot_split(step, state, profiler=prof)
+    assert replay is step and seconds >= 0.0 and prof.counts == {"compile": 1}
+    assert state.tolist() == [0.0, 0.0, 0.0]
 
 
 def test_tracer_records_equal_reference(tmp_path):

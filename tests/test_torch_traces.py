@@ -6,8 +6,9 @@ trace lookups and the per-second jitter on top are bit-equal.  A
 trace-driven ``Uplink`` solves its transfers by the same fixed-point
 iteration over the same rates, so its landing times agree within
 ``LAT_ATOL`` (they come out bit-equal).  A traced cell's nominal rate is
-the trace's time-weighted mean in both.  The reference's counter-mode
-jitter (JAX threefry bits) still raises, naming ROADMAP A.9.
+the trace's time-weighted mean in both.  Counter-mode jitter (JAX's
+threefry bits, ``core/threefry.py``) on top of a trace gives the
+reference's transfers bit for bit.
 """
 import numpy as np
 import pytest
@@ -161,7 +162,20 @@ def test_fabric_trace_mean_stream_bandwidth_and_transmit():
         tfab.EdgeFabric.build(n_streams=2, n_cells=2, traces=[None])
 
 
-def test_counter_jitter_still_raises_naming_a9():
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tnet.Uplink(bandwidth_bps=1e6, latency=0.05, server_time=0.037, jitter=0.2, jitter_mode="counter",
-                    trace=ttr.wifi_trace())
+def test_counter_jitter_uplink_matches_reference():
+    kw = dict(bandwidth_bps=1e6, latency=0.05, server_time=0.037, jitter=0.2, seed=3,
+              jitter_mode="counter")
+    tu = tnet.Uplink(trace=ttr.wifi_trace(), **kw)
+    ju = jnet.Uplink(trace=jtr.wifi_trace(), **kw)
+    rng = np.random.default_rng(2)
+    t0 = 0.0
+    for _ in range(6):
+        n = int(rng.integers(1, 30))
+        subs = np.sort(t0 + rng.uniform(0.0, 2.0, n))
+        pay = rng.uniform(2e3, 6e4, n)
+        np.testing.assert_array_equal(tu.transmit_batch(pay, subs), ju.transmit_batch(pay, subs))
+        t0 += 2.0
+    assert (tu._busy_until, tu.n_transfers, tu.busy_seconds, tu.queued_seconds) == \
+        (ju._busy_until, ju.n_transfers, ju.busy_seconds, ju.queued_seconds)
+    np.testing.assert_array_equal(tu._jit_keys, ju._jit_keys)
+    np.testing.assert_array_equal(tu._jit_vals, ju._jit_vals)
