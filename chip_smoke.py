@@ -64,12 +64,20 @@ without them it exits non-zero before printing any result.  Phases:
      (``bench_fleet_control.py``'s) at 1,000 to 1,000,000 streams: capture
      and steady seconds, rounds and frames a second, device ms a round,
      peak card memory, the card against the CPU at 1,000.
+     3h. path 8, the rest of the language-model zoo (bf16 weights drawn on
+     the card): (a) DeepSeek-V2-Lite-16B FULL (MLA, MoE): prefill 8 x 2048
+     tokens with grouped MoE dispatch, then 32 greedy absorbed decode
+     steps; from a clone of the prefill cache 8 naive steps fed the same
+     tokens; 8 absorbed steps on an int8 cache; no hand-written kernel
+     runs.  (b) Arctic-480B at full width, 2 of its 35 layers: int8 KV
+     cache with folded scales, prefill 8 x 1024, 16 greedy steps, each
+     layer's decode attention one int8-KV decode launch at G = 7.
      Each path's kernel launch counts are set to 0 just before its run and
-     read just after; then the same stream (path 4: 8 more decode steps;
-     path 5: the split fleet; path 6: the telemetry run, one cbo planning
-     call at 131,072 streams; path 7: the torch run, and 8 rounds at
-     100,000 streams) runs again under ``torch.profiler`` for the device's
-     idle share;
+     read just after; then the same stream (paths 4 and 8: 8 more decode
+     steps; path 5: the split fleet; path 6: the telemetry run, one cbo
+     planning call at 131,072 streams; path 7: the torch run, and 8 rounds
+     at 100,000 streams) runs again under ``torch.profiler`` for the
+     device's idle share;
   4. one batch's fast pass on the card against the same pass on the CPU,
      (4b) DeiT-B's logits on two frames likewise, TF32 off, (4c) the
      multi-stream engine with the synthetic tiers on the card against the
@@ -78,7 +86,10 @@ without them it exits non-zero before printing any result.  Phases:
      (4e) path 5's split fleet with the synthetic tiers on the card
      against the CPU, and (4f) the round engine (``backend="torch"``) with
      the synthetic tiers on the card against the CPU, over a live-batching
-     fabric and a counter-jittered 2-cell fabric;
+     fabric and a counter-jittered 2-cell fabric, and (4g) DeepSeek-V2-Lite-16B's
+     widths cut to 2 layers (absorbed and naive decode) and Arctic-480B's
+     widths with 8 experts and 1 layer (int8-fold decode through the
+     kernel), card against CPU: the same routes and greedy tokens;
   5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, and the script exits non-zero.
@@ -135,6 +146,13 @@ DECODE_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (8e-3, 1e-4)}
 # entry differs by one int8 step, which moves the logits by up to ~1e-3
 CPU_LM_ATOL = 2e-3
 LM_BATCH, LM_PROMPT, LM_STEPS = 8, 2048, 32  # path 4
+# path 8: (a) DeepSeek-V2-Lite-16B FULL, 8 x 2048 prefill, absorbed steps,
+# then naive steps from a clone of the prefill cache and absorbed steps on an
+# int8 cache; (b) Arctic-480B at full width, 2 of its 35 layers, 8 x 1024
+# prefill, int8 cache with the scales folded
+ZOO_STEPS, ZOO_CHECK_STEPS = 32, 8
+ARCTIC_LAYERS, ARCTIC_PROMPT, ARCTIC_STEPS = 2, 1024, 16
+ZOO_ABSORB_ATOL = 2e-4  # phase 4g: absorbed vs naive MLA decode on the card, tests/test_models_smoke.py's bound
 # int8-KV decode against its plain version: (name, B, S, KH, G, D, q's dtype)
 KV_CASES = [("test sweep", 1, 512, 1, 1, 64, "float32"), ("test sweep", 2, 1024, 4, 3, 64, "float32"),
             ("test sweep", 2, 512, 8, 1, 128, "float32"), ("test sweep", 1, 2048, 2, 4, 64, "float32"),
@@ -142,7 +160,8 @@ KV_CASES = [("test sweep", 1, 512, 1, 1, 64, "float32"), ("test sweep", 2, 1024,
             ("StableLM f32", LM_BATCH, LM_PROMPT, 8, 4, 160, "float32"),
             ("Qwen-like MHA", 2, 1024, 40, 1, 128, "float32"),
             ("ragged S", LM_BATCH, 2047, 8, 4, 160, "float32"), ("S=1", LM_BATCH, 1, 8, 4, 160, "float32"),
-            ("extreme scales", 1, 256, 1, 2, 32, "float32"), ("Arctic G=7", 2, 1000, 8, 7, 128, "bfloat16")]
+            ("extreme scales", 1, 256, 1, 2, 32, "float32"), ("Arctic G=7", 2, 1000, 8, 7, 128, "bfloat16"),
+            ("Arctic path", LM_BATCH, ARCTIC_PROMPT, 8, 7, 128, "bfloat16")]
 LM_TRACED_STEPS = 8
 PLATT = (-20.0, 5.0)
 N_FRAMES = 256
@@ -960,6 +979,65 @@ def traced_kernels(fn, iters: int, names, top: int = 6):
             [(e.key[:60], e.self_device_time_total / 1e3 / iters) for e in ranked])
 
 
+def _free_card() -> None:
+    """Return the card memory of models no longer referenced (path 4's
+    StableLM, path 8 (a)'s DeepSeek) before the next large model."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _timed_decode(model, cfg, plan, cache, tok, n_steps, start_pos, fed=None):
+    """``n_steps`` ``lm_decode`` steps from token ``tok`` (B,), each timed
+    by CUDA events: step i takes ``fed[i]`` when ``fed`` is given, else the
+    greedy token of step i - 1.  Returns every step's logits, the step
+    times (ms) and the cache."""
+    import torch
+
+    from repro_torch.models.transformer import lm_decode
+
+    outs, events = [], []
+    for i in range(n_steps):
+        if fed is not None:
+            tok = fed[i]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = lm_decode(model, cache, tok, start_pos + i, cfg, plan)
+        end.record()
+        events.append((start, end))
+        outs.append(logits)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    return outs, [s.elapsed_time(e) for s, e in events], cache
+
+
+def _decode_trace(model, cfg, plan, cache, tok, pos, names):
+    """``LM_TRACED_STEPS`` more decode steps under the profiler: the device
+    time a step, the share of kernels named in ``names``, the top kernels,
+    and (a repeat) the device's idle share."""
+    state = {"cache": cache, "tok": tok, "pos": pos}
+
+    def step():
+        from repro_torch.models.transformer import lm_decode
+
+        logits, state["cache"] = lm_decode(model, state["cache"], state["tok"], state["pos"], cfg, plan)
+        state["tok"] = logits.argmax(-1)
+        state["pos"] += 1
+
+    dev_ms, kern_ms, ranked = traced_kernels(step, LM_TRACED_STEPS, names or ("no kernel",))
+    busy_ms, traced_ms = traced(step, LM_TRACED_STEPS, host_ops=False)
+    idle = "not measured" if busy_ms is None else f"{1 - busy_ms / traced_ms:.4f}"
+    share = "not measured" if dev_ms is None else f"{kern_ms / dev_ms:.4f}"
+    named = f", of which int8_kv_decode {_us(kern_ms)} (share {share})" if names else ""
+    print(f"  decode step device time (profiler, {LM_TRACED_STEPS} steps) {_us(dev_ms)}{named}; traced repeat of"
+          f" {LM_TRACED_STEPS} steps: device busy {busy_ms} ms of {traced_ms:.3f} ms wall, device idle share {idle}")
+    print("  top kernels by device time per decode step:",
+          "; ".join(f"{name} {ms * 1e3:.1f} us" for name, ms in ranked))
+
+
 def lm_phase(counted, kernel_names=("int8_kv_decode_kernel",)):
     """Path 4: StableLM-12B FULL on the card, int8 KV cache with the scales
     folded into the decode kernel.  Warm up once at the path's shapes; then,
@@ -973,7 +1051,7 @@ def lm_phase(counted, kernel_names=("int8_kv_decode_kernel",)):
     from repro_torch.configs.stablelm_12b import FULL as STABLELM
     from repro_torch.core.confidence import sequence_confidence
     from repro_torch.models.api import build
-    from repro_torch.models.transformer import ParallelPlan, TransformerLM, lm_decode, lm_prefill
+    from repro_torch.models.transformer import ParallelPlan, TransformerLM, lm_prefill
 
     plan = ParallelPlan(kv_cache_dtype="int8", kv_scale_fold=True)
     t0 = time.perf_counter()
@@ -988,21 +1066,9 @@ def lm_phase(counted, kernel_names=("int8_kv_decode_kernel",)):
           f" {sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB)"
           f" {time.perf_counter() - t0:.2f} s")
 
-    def generate(n_steps, start_pos, cache, tok):
-        step_events, outs = [], []
-        for i in range(n_steps):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            logits, cache = lm_decode(model, cache, tok, start_pos + i, STABLELM, plan)
-            end.record()
-            step_events.append((start, end))
-            outs.append(logits)
-            tok = logits.argmax(-1)
-        return outs, step_events, cache, tok
-
     t0 = time.perf_counter()
     logits, cache = lm_prefill(model, tokens, STABLELM, plan)
-    generate(2, LM_PROMPT, cache, logits.argmax(-1))
+    _timed_decode(model, STABLELM, plan, cache, logits.argmax(-1), 2, LM_PROMPT)
     del cache, logits
     torch.cuda.synchronize()
     print(f"set-up: path 4 warm-up, one prefill and 2 decode steps at the path's shapes"
@@ -1017,8 +1083,7 @@ def lm_phase(counted, kernel_names=("int8_kv_decode_kernel",)):
     logits, cache = lm_prefill(model, tokens, STABLELM, plan)
     p_end.record()
     prefill_logits = logits
-    outs, step_events, cache, tok = generate(LM_STEPS, LM_PROMPT, cache, logits.argmax(-1))
-    torch.cuda.synchronize()
+    outs, step_ms, cache = _timed_decode(model, STABLELM, plan, cache, logits.argmax(-1), LM_STEPS, LM_PROMPT)
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counted.items()}
 
@@ -1034,7 +1099,6 @@ def lm_phase(counted, kernel_names=("int8_kv_decode_kernel",)):
     check(cache["k"].shape == (STABLELM.n_layers, LM_BATCH, LM_PROMPT, 8, 160)
           and cache["k"].dtype == torch.int8, f"path 4: cache {tuple(cache['k'].shape)} {cache['k'].dtype}")
     prefill_ms = p_start.elapsed_time(p_end)
-    step_ms = [s.elapsed_time(e) for s, e in step_events]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     conf = sequence_confidence(gen).cpu().numpy()
     print(f"path 4, StableLM-12B FULL, int8 KV cache with folded scales, on {card_line()}:"
@@ -1046,23 +1110,7 @@ def lm_phase(counted, kernel_names=("int8_kv_decode_kernel",)):
           f" peak memory {peak_gb:.2f} GB (max_memory_allocated)")
     print("  sequence_confidence over the 32 generated logits:", " ".join(f"{c:.4f}" for c in conf))
 
-    # more steps under the profiler: device time per step, the kernel's share
-    state = {"cache": cache, "tok": tok, "pos": LM_PROMPT + LM_STEPS}
-
-    def step():
-        logits, state["cache"] = lm_decode(model, state["cache"], state["tok"], state["pos"], STABLELM, plan)
-        state["tok"] = logits.argmax(-1)
-        state["pos"] += 1
-
-    dev_ms, kern_ms, ranked = traced_kernels(step, LM_TRACED_STEPS, kernel_names)
-    share = "not measured" if dev_ms is None else f"{kern_ms / dev_ms:.4f}"
-    busy_ms, traced_ms = traced(step, LM_TRACED_STEPS, host_ops=False)
-    idle = "not measured" if busy_ms is None else f"{1 - busy_ms / traced_ms:.4f}"
-    print(f"  decode step device time (profiler, {LM_TRACED_STEPS} steps) {_us(dev_ms)}, of which"
-          f" int8_kv_decode {_us(kern_ms)} (share {share}); traced repeat of {LM_TRACED_STEPS} steps:"
-          f" device busy {busy_ms} ms of {traced_ms:.3f} ms wall, device idle share {idle}")
-    print("  top kernels by device time per decode step:",
-          "; ".join(f"{name} {ms * 1e3:.1f} us" for name, ms in ranked))
+    _decode_trace(model, STABLELM, plan, cache, gen[:, -1].argmax(-1), LM_PROMPT + LM_STEPS, kernel_names)
     return launches
 
 
@@ -1105,6 +1153,292 @@ def lm_card_vs_cpu(kv_kernel) -> float:
           f" of |logit| <= {float(lc.abs().max()):.3f}; greedy tokens equal;"
           f" {time.perf_counter() - t0:.2f} s")
     return max(errs)
+
+
+def zoo_phase(counted):
+    """Path 8: the rest of the language-model zoo at full width on the card.
+
+    (a) DeepSeek-V2-Lite-16B FULL (MLA, 26 MoE layers of 64 experts, bf16
+    weights drawn on the card): prefill 8 x 2048 tokens with grouped MoE
+    dispatch (one group at ``data_axis`` 1) into a bf16 latent cache, then
+    ``ZOO_STEPS`` greedy absorbed decode steps; from a clone of the prefill
+    cache ``ZOO_CHECK_STEPS`` naive steps fed the same tokens; then a prefill
+    into an int8 cache and ``ZOO_CHECK_STEPS`` absorbed steps on it.  No
+    hand-written kernel runs.  (b) Arctic-480B at full width cut to
+    ``ARCTIC_LAYERS`` layers (the 35-layer model is 953.7 GB in bf16): an
+    int8 cache with the scales folded, prefill 8 x 1024 tokens, then
+    ``ARCTIC_STEPS`` greedy steps, each layer's decode attention one
+    ``int8_kv_decode`` launch at G = 7.  Each part warms up once at its
+    shapes, then its counted run starts with every launch count at 0."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.arctic_480b import FULL as ARCTIC
+    from repro_torch.configs.deepseek_v2_lite_16b import FULL as DSV2
+    from repro_torch.models.api import build
+    from repro_torch.models.moe import capacity_for
+    from repro_torch.models.transformer import ParallelPlan, TransformerLM, lm_prefill
+
+    def zero():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def launches():
+        return {name: fn.launches for name, fn in counted.items()}
+
+    def gb(model):
+        return sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+
+    _free_card()
+    card = card_line()
+
+    # (a) DeepSeek-V2-Lite-16B FULL
+    prefill_plan = ParallelPlan(moe_grouped_dispatch=True)
+    absorb_plan = ParallelPlan(mla_absorb=True, pad_attention_heads=False)
+    naive_plan = ParallelPlan(pad_attention_heads=False)
+    int8_plan = ParallelPlan(mla_absorb=True, pad_attention_heads=False, kv_cache_dtype="int8")
+    int8_prefill = dataclasses.replace(int8_plan, moe_grouped_dispatch=True)
+    t0 = time.perf_counter()
+    model = TransformerLM(DSV2, prefill_plan, generator=torch.Generator(device="cuda").manual_seed(8), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == build(DSV2).n_params() == 15_706_484_224, f"DeepSeek-V2-Lite-16B holds {n_params} parameters")
+    tokens = torch.as_tensor(np.random.default_rng(8).integers(0, DSV2.vocab_size, (LM_BATCH, LM_PROMPT)),
+                             device="cuda")
+    print(f"set-up: DeepSeek-V2-Lite-16B FULL bf16 weights on the card ({n_params} parameters, {gb(model):.2f} GB)"
+          f" {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    for pplan, dplans in ((prefill_plan, (absorb_plan, naive_plan)), (int8_prefill, (int8_plan,))):
+        logits, cache = lm_prefill(model, tokens, DSV2, pplan)
+        for dplan in dplans:
+            _timed_decode(model, DSV2, dplan, cache, logits.argmax(-1), 2, LM_PROMPT)
+    del logits, cache
+    torch.cuda.synchronize()
+    print(f"set-up: path 8 (a) warm-up, two prefills and 2 decode steps of each kind at the path's shapes"
+          f" {time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    t0 = time.perf_counter()
+    p_start, p_end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    p_start.record()
+    prefill_logits, cache = lm_prefill(model, tokens, DSV2, prefill_plan)
+    p_end.record()
+    clone = {k: v.clone() for k, v in cache.items()}
+    absorbed, step_ms, cache = _timed_decode(model, DSV2, absorb_plan, cache, prefill_logits.argmax(-1), ZOO_STEPS,
+                                             LM_PROMPT)
+    fed = [prefill_logits.argmax(-1)] + [o.argmax(-1) for o in absorbed[:ZOO_CHECK_STEPS - 1]]
+    naive, naive_ms, _ = _timed_decode(model, DSV2, naive_plan, clone, None, ZOO_CHECK_STEPS, LM_PROMPT, fed)
+    del clone
+    int8_logits, cache8 = lm_prefill(model, tokens, DSV2, int8_prefill)
+    int8_out, int8_ms, cache8 = _timed_decode(model, DSV2, int8_plan, cache8, None, ZOO_CHECK_STEPS, LM_PROMPT, fed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got_a = got = launches()
+    check(all(n == 0 for n in got.values()), f"path 8 (a): hand-written kernels launched {got}")
+    gen = torch.stack(absorbed, dim=1)
+    check(gen.shape == (LM_BATCH, ZOO_STEPS, DSV2.vocab_size), f"path 8 (a): logits {tuple(gen.shape)}")
+    check(all(bool(torch.isfinite(t).all()) for t in (prefill_logits, gen, *naive, int8_logits, *int8_out)),
+          "path 8 (a): non-finite logits")
+    check(cache["ckv"].shape == (DSV2.n_layers, LM_BATCH, LM_PROMPT, 512) and cache["ckv"].dtype == torch.bfloat16
+          and cache8["ckv"].dtype == torch.int8
+          and cache8["ckv_scale"].shape == (DSV2.n_layers, LM_BATCH, LM_PROMPT, 1),
+          f"path 8 (a): caches {tuple(cache['ckv'].shape)} {cache['ckv'].dtype}, {cache8['ckv'].dtype}")
+    naive_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(absorbed, naive))
+    naive_same = sum(int((a.argmax(-1) == b.argmax(-1)).sum()) for a, b in zip(absorbed, naive))
+    int8_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(absorbed, int8_out))
+    prefill_ms = p_start.elapsed_time(p_end)
+    print(f"path 8 (a), DeepSeek-V2-Lite-16B FULL (MLA, 26 MoE layers of 64 experts), bf16, on {card}:"
+          f" {LM_BATCH} prompts x {LM_PROMPT} tokens (grouped MoE dispatch, 1 group; capacity"
+          f" {capacity_for(LM_BATCH * LM_PROMPT, DSV2.moe)} slots an expert), {ZOO_STEPS} greedy absorbed decode steps;"
+          f" launches {got}; wall {wall:.3f} s")
+    print(f"  prefill {prefill_ms:.3f} ms (events; {LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.1f} tokens/s);"
+          f" absorbed decode per step mean {np.mean(step_ms):.3f} ms, min {np.min(step_ms):.3f} ms (events);"
+          f" {LM_BATCH * ZOO_STEPS / sum(step_ms) * 1e3:.1f} tokens/s; naive decode per step mean"
+          f" {np.mean(naive_ms):.3f} ms; absorbed on the int8 cache mean {np.mean(int8_ms):.3f} ms;"
+          f" peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB (max_memory_allocated)")
+    print(f"  naive vs absorbed over {ZOO_CHECK_STEPS} steps from one prefill cache: max |logit| diff {naive_err:.4e},"
+          f" greedy tokens equal {naive_same}/{LM_BATCH * ZOO_CHECK_STEPS}; absorbed int8 cache vs bf16 cache:"
+          f" max |logit| diff {int8_err:.4e} of |logit| <= {float(gen.float().abs().max()):.3f}")
+    _decode_trace(model, DSV2, absorb_plan, cache, gen[:, -1].argmax(-1), LM_PROMPT + ZOO_STEPS, ())
+    del model, cache, cache8, absorbed, naive, int8_out, gen, prefill_logits, int8_logits
+    _free_card()
+
+    # (b) Arctic-480B at full width, ARCTIC_LAYERS layers
+    cfg = dataclasses.replace(ARCTIC, name=f"arctic-480b-{ARCTIC_LAYERS}l", n_layers=ARCTIC_LAYERS)
+    decode_plan = ParallelPlan(kv_cache_dtype="int8", kv_scale_fold=True)
+    prefill_plan = dataclasses.replace(decode_plan, moe_grouped_dispatch=True)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(cfg, decode_plan, generator=torch.Generator(device="cuda").manual_seed(9), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == build(cfg).n_params() == 27_681_131_520, f"Arctic-480B, 2 layers, holds {n_params} parameters")
+    tokens = torch.as_tensor(np.random.default_rng(9).integers(0, cfg.vocab_size, (LM_BATCH, ARCTIC_PROMPT)),
+                             device="cuda")
+    print(f"set-up: Arctic-480B at full width, {ARCTIC_LAYERS} of 35 layers, bf16 weights on the card ({n_params}"
+          f" parameters, {gb(model):.2f} GB; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB while drawn)"
+          f" {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    logits, cache = lm_prefill(model, tokens, cfg, prefill_plan)
+    _timed_decode(model, cfg, decode_plan, cache, logits.argmax(-1), 2, ARCTIC_PROMPT)
+    del logits, cache
+    torch.cuda.synchronize()
+    print(f"set-up: path 8 (b) warm-up, one prefill and 2 decode steps {time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    t0 = time.perf_counter()
+    p_start.record()
+    prefill_logits, cache = lm_prefill(model, tokens, cfg, prefill_plan)
+    p_end.record()
+    outs, step_ms, cache = _timed_decode(model, cfg, decode_plan, cache, prefill_logits.argmax(-1), ARCTIC_STEPS,
+                                         ARCTIC_PROMPT)
+    wall = time.perf_counter() - t0
+    got = launches()
+    expected = ARCTIC_LAYERS * ARCTIC_STEPS
+    check(got["int8_kv_decode"] == expected,
+          f"path 8 (b): int8_kv_decode launched {got['int8_kv_decode']} times, expected {expected}")
+    for name in ("calib_gate", "flash_attention", "int8_matmul"):
+        check(got[name] == 0, f"path 8 (b): {name} launched {got[name]} times")
+    gen = torch.stack(outs, dim=1)
+    check(gen.shape == (LM_BATCH, ARCTIC_STEPS, cfg.vocab_size), f"path 8 (b): logits {tuple(gen.shape)}")
+    check(bool(torch.isfinite(gen).all()) and bool(torch.isfinite(prefill_logits).all()),
+          "path 8 (b): non-finite logits")
+    check(cache["k"].shape == (ARCTIC_LAYERS, LM_BATCH, ARCTIC_PROMPT, 8, 128) and cache["k"].dtype == torch.int8,
+          f"path 8 (b): cache {tuple(cache['k'].shape)} {cache['k'].dtype}")
+    prefill_ms = p_start.elapsed_time(p_end)
+    print(f"path 8 (b), Arctic-480B at full width ({ARCTIC_LAYERS} of 35 layers: 56 query heads over 8 KV heads of"
+          f" 128, 128 experts of 4864 top 2 and a 4864-wide dense residual), int8 KV cache with folded scales, on"
+          f" {card}: {LM_BATCH} prompts x {ARCTIC_PROMPT} tokens (capacity"
+          f" {capacity_for(LM_BATCH * ARCTIC_PROMPT, cfg.moe)} slots an expert), {ARCTIC_STEPS} greedy decode steps;"
+          f" launches {got}; wall {wall:.3f} s")
+    print(f"  prefill {prefill_ms:.3f} ms (events; {LM_BATCH * ARCTIC_PROMPT / prefill_ms * 1e3:.1f} tokens/s);"
+          f" decode per step mean {np.mean(step_ms):.3f} ms, min {np.min(step_ms):.3f} ms (events);"
+          f" {LM_BATCH * ARCTIC_STEPS / sum(step_ms) * 1e3:.1f} tokens/s;"
+          f" peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB (max_memory_allocated)")
+    _decode_trace(model, cfg, decode_plan, cache, gen[:, -1].argmax(-1), ARCTIC_PROMPT + ARCTIC_STEPS,
+                  ("int8_kv_decode_kernel",))
+    del model, cache, outs, gen, prefill_logits
+    _free_card()
+    return {name: got_a[name] + got[name] for name in counted}
+
+
+def zoo_card_vs_cpu(kv_kernel) -> None:
+    """Phase 4g, float32, TF32 off, the weights drawn on the card and copied
+    to the CPU.  DeepSeek-V2-Lite-16B's widths cut to 2 layers (1 dense, 1
+    MoE of 64 experts) and vocab 4096: prefill 2 x 128 tokens, then 4
+    absorbed decode steps and, from a clone of each device's prefill cache,
+    4 naive ones fed the same tokens.  Arctic-480B's widths with 8 of its
+    128 experts, 1 layer, vocab 4096, int8 cache with the fold: prefill 2 x
+    128, then 4 decode steps, the card through the kernel, the CPU through
+    the plain version.  Card against CPU: logits within ``CPU_LM_ATOL``,
+    greedy tokens equal, every MoE call's routes equal; absorbed against
+    naive on the card within ``ZOO_ABSORB_ATOL``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.arctic_480b import FULL as ARCTIC
+    from repro_torch.configs.deepseek_v2_lite_16b import FULL as DSV2
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import ParallelPlan, TransformerLM, lm_decode, lm_prefill
+
+    routes = {"cpu": [], "cuda": []}
+    gaps = []
+    route = moe.route
+
+    def recording_route(router, xf, cfg):
+        gates, top_v, top_i = route(router, xf, cfg)
+        routes[xf.device.type].append(top_i.cpu())
+        srt = torch.sort(gates, dim=-1, descending=True).values
+        gaps.append(float((srt[..., cfg.top_k - 1] - srt[..., cfg.top_k]).min()))
+        return gates, top_v, top_i
+
+    def both(cfg, plan, seed):
+        card = TransformerLM(cfg, plan, generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda",
+                             dtype=torch.float32)
+        cpu = TransformerLM(cfg, plan, device="cpu", dtype=torch.float32)
+        cpu.load_state_dict(card.state_dict())
+        return cpu, card
+
+    moe.route = recording_route
+    try:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(DSV2, name="deepseek-v2-lite-widths-2l", n_layers=2, vocab_size=4096)
+        plans = {False: ParallelPlan(pad_attention_heads=False), True: ParallelPlan(mla_absorb=True,
+                                                                                    pad_attention_heads=False)}
+        cpu, card = both(cfg, plans[True], 10)
+        tokens = torch.as_tensor(np.random.default_rng(10).integers(0, cfg.vocab_size, (2, 128)))
+        lc, cache_c = lm_prefill(cpu, tokens, cfg, plans[True])
+        lg, cache_g = lm_prefill(card, tokens.cuda(), cfg, plans[True])
+        errs, same = [float((lg.cpu() - lc).abs().max())], [bool(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)))]
+        caches = {a: ({k: v.clone() for k, v in cache_c.items()}, {k: v.clone() for k, v in cache_g.items()})
+                  for a in (False, True)}
+        fed = [lc.argmax(-1)]
+        card_logits = {False: [], True: []}
+        for absorb in (True, False):
+            cc, cg = caches[absorb]
+            for i, pos in enumerate(range(128, 132)):
+                tok = fed[i]
+                lc, cc = lm_decode(cpu, cc, tok, pos, cfg, plans[absorb])
+                lg, cg = lm_decode(card, cg, tok.cuda(), pos, cfg, plans[absorb])
+                if absorb:
+                    fed.append(lc.argmax(-1))
+                errs.append(float((lg.cpu() - lc).abs().max()))
+                same.append(bool(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))))
+                card_logits[absorb].append(lg)
+        absorb_err = max(float((a - b).abs().max()) for a, b in zip(card_logits[True], card_logits[False]))
+        n_moe = len(routes["cpu"])
+        check(n_moe == len(routes["cuda"]) == 9, f"phase 4g: {n_moe} and {len(routes['cuda'])} MoE calls")
+        check(all(torch.equal(a, b) for a, b in zip(routes["cpu"], routes["cuda"])),
+              "phase 4g: DeepSeek widths: the card's routes differ from the CPU's")
+        check(all(same), f"phase 4g: DeepSeek widths: greedy tokens differ {same}")
+        check(max(errs) <= CPU_LM_ATOL, f"phase 4g: DeepSeek widths: card vs CPU logit err {max(errs)} > {CPU_LM_ATOL}")
+        check(absorb_err <= ZOO_ABSORB_ATOL,
+              f"phase 4g: absorbed vs naive on the card {absorb_err} > {ZOO_ABSORB_ATOL}")
+        print(f"DeepSeek-V2-Lite-16B widths, 2 layers (1 MoE of 64 experts), vocab 4096, float32, TF32 off, card vs"
+              f" CPU: max |logit| err per call (prefill, 4 absorbed, 4 naive steps)"
+              f" {' '.join(f'{e:.2e}' for e in errs)} (atol {CPU_LM_ATOL}) of |logit| <= {float(lc.abs().max()):.3f};"
+              f" greedy tokens equal; routes of {n_moe} MoE calls equal (least gap between the 6th and 7th gate"
+              f" {min(gaps):.2e}); absorbed vs naive on the card {absorb_err:.2e} (atol {ZOO_ABSORB_ATOL});"
+              f" {time.perf_counter() - t0:.2f} s")
+        del cpu, card, caches, cache_c, cache_g, card_logits
+
+        t0 = time.perf_counter()
+        for recorded in (routes["cpu"], routes["cuda"], gaps):
+            recorded.clear()
+        cfg = dataclasses.replace(ARCTIC, name="arctic-480b-widths-1l-8e", n_layers=1, vocab_size=4096,
+                                  moe=dataclasses.replace(ARCTIC.moe, n_routed=8))
+        plan = ParallelPlan(kv_cache_dtype="int8", kv_scale_fold=True)
+        cpu, card = both(cfg, plan, 11)
+        n_params = sum(p.numel() for p in cpu.parameters())
+        tokens = torch.as_tensor(np.random.default_rng(11).integers(0, cfg.vocab_size, (2, 128)))
+        lc, cache_c = lm_prefill(cpu, tokens, cfg, plan)
+        lg, cache_g = lm_prefill(card, tokens.cuda(), cfg, plan)
+        errs, same = [float((lg.cpu() - lc).abs().max())], [bool(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)))]
+        before = kv_kernel.int8_kv_decode.launches
+        for pos in range(128, 132):
+            tok = lc.argmax(-1)
+            lc, cache_c = lm_decode(cpu, cache_c, tok, pos, cfg, plan)
+            lg, cache_g = lm_decode(card, cache_g, tok.cuda(), pos, cfg, plan)
+            errs.append(float((lg.cpu() - lc).abs().max()))
+            same.append(bool(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))))
+        n_kernel = kv_kernel.int8_kv_decode.launches - before
+        check(n_kernel == 4, f"phase 4g: Arctic widths: {n_kernel} int8_kv_decode launches, expected 4")
+        check(len(routes["cpu"]) == len(routes["cuda"]) == 5
+              and all(torch.equal(a, b) for a, b in zip(routes["cpu"], routes["cuda"])),
+              "phase 4g: Arctic widths: the card's routes differ from the CPU's")
+        check(all(same), f"phase 4g: Arctic widths: greedy tokens differ {same}")
+        check(max(errs) <= CPU_LM_ATOL, f"phase 4g: Arctic widths: card vs CPU logit err {max(errs)} > {CPU_LM_ATOL}")
+        print(f"Arctic-480B widths, 1 layer, 8 of 128 experts, vocab 4096 ({n_params} parameters), float32, TF32 off,"
+              f" int8 cache with the fold, card (4 kernel launches at G = 7) vs CPU (plain version): max |logit| err"
+              f" per call (prefill, 4 decode steps) {' '.join(f'{e:.2e}' for e in errs)} (atol {CPU_LM_ATOL}) of"
+              f" |logit| <= {float(lc.abs().max()):.3f}; greedy tokens equal; routes of 5 MoE calls equal (least gap"
+              f" between the 2nd and 3rd gate {min(gaps):.2e}); {time.perf_counter() - t0:.2f} s")
+    finally:
+        moe.route = route
 
 
 def warm_up(label, fast, slow, frames, n_fast=BATCH, n_slow=BATCH):
@@ -1987,6 +2321,11 @@ def main() -> int:
     engine_bench_phase()
     phase_done("3g (path 7)")
 
+    # ---- 3h. path 8: DeepSeek-V2-Lite-16B (MLA, MoE) and Arctic-480B ------ #
+    zoo_launches = zoo_phase({"calib_gate": cg_kernel.calib_gate, "flash_attention": fa_kernel.flash_attention,
+                              "int8_matmul": i8_kernel.int8_matmul, "int8_kv_decode": kv_kernel.int8_kv_decode})
+    phase_done("3h (path 8)")
+
     # ---- 4. card against CPU ---------------------------------------------- #
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2029,6 +2368,9 @@ def main() -> int:
 
     # ---- 4f. the round engine card against CPU ---------------------------- #
     engine_card_vs_cpu()
+
+    # ---- 4g. the LM zoo's widths card against CPU -------------------------- #
+    zoo_card_vs_cpu(kv_kernel)
     phase_done("4 (card against CPU)")
 
     # ---- 5. result -------------------------------------------------------- #
@@ -2039,7 +2381,7 @@ def main() -> int:
                     source="src/repro_torch/kernels/fused_calib_gate/csrc/calib_gate.cu",
                     replaces="src/repro/kernels/fused_calib_gate/kernel.py:48",
                     launches=(launches["calib_gate"] + eval_launches["calib_gate"] + tel_launches["calib_gate"]
-                              + eng_launches["calib_gate"]),
+                              + eng_launches["calib_gate"] + zoo_launches["calib_gate"]),
                     max_abs_err=cg_err,
                     ms=cg_row["ms"], plain_ms=cg_row["plain_ms"],
                     bound_ms=cg_row["bound_ms"], bound_by=cg_row["bound_by"],
@@ -2048,7 +2390,8 @@ def main() -> int:
                     source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention/kernel.py:62",
                     launches=(launches["flash_attention"] + eval_launches["flash_attention"]
-                              + tel_launches["flash_attention"] + eng_launches["flash_attention"]),
+                              + tel_launches["flash_attention"] + eng_launches["flash_attention"]
+                              + zoo_launches["flash_attention"]),
                     max_abs_err=fa_err,
                     ms=fa_row["ms"], plain_ms=fa_row["plain_ms"],
                     bound_ms=fa_row["bound_ms"], bound_by=fa_row["bound_by"],
@@ -2057,7 +2400,7 @@ def main() -> int:
                     source="src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",
                     replaces="src/repro/kernels/int8_matmul/kernel.py:43",
                     launches=(launches["int8_matmul"] + eval_launches["int8_matmul"] + tel_launches["int8_matmul"]
-                              + eng_launches["int8_matmul"]),
+                              + eng_launches["int8_matmul"] + zoo_launches["int8_matmul"]),
                     max_abs_err=i8_err,
                     ms=i8_row["ms"], plain_ms=i8_row["plain_ms"],
                     bound_ms=i8_row["bound_ms"], bound_by=i8_row["bound_by"],
@@ -2066,7 +2409,8 @@ def main() -> int:
                     source="src/repro_torch/kernels/int8_kv_decode/csrc/int8_kv_decode.cu",
                     replaces="src/repro/kernels/int8_kv_decode/kernel.py:59",
                     launches=lm_launches["int8_kv_decode"] + eval_launches["int8_kv_decode"]
-                    + tel_launches["int8_kv_decode"] + eng_launches["int8_kv_decode"], max_abs_err=kv_err,
+                    + tel_launches["int8_kv_decode"] + eng_launches["int8_kv_decode"]
+                    + zoo_launches["int8_kv_decode"], max_abs_err=kv_err,
                     ms=kv_row["ms"], plain_ms=kv_row["plain_ms"],
                     bound_ms=kv_row["bound_ms"], bound_by=kv_row["bound_by"],
                     library_ms=kv_row["library_ms"])]

@@ -2,8 +2,8 @@
 ``repro.configs.base``: ResNet, ViT, Swin and the language models so far).
 
 ``LMConfig`` keeps every field of the reference's, the MoE and MLA ones
-included, so that configs read the same; the port runs the dense GQA
-family (``models/transformer.py``) and raises on MLA and MoE.
+included, so that configs read the same; ``models/transformer.py`` runs
+all of them: dense GQA, MLA and MoE.
 ``SwinConfig`` is the configuration only (the split planner's catalog
 reads it); the Swin model is not ported (ROADMAP A.12).
 
@@ -192,7 +192,7 @@ def _lm_param_breakdown(c: LMConfig) -> dict[str, int]:
 @dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str  # lm | vision
+    family: str  # lm | moe-lm | vision
     full: object
     smoke: object
     source: str  # public citation
@@ -227,6 +227,8 @@ def list_archs() -> list[str]:
 def _load_all() -> None:
     # import every config module so that its @register runs
     from repro_torch.configs import (  # noqa: F401
+        arctic_480b,
+        deepseek_v2_lite_16b,
         deit_b,
         qwen15_32b,
         resnet_50,

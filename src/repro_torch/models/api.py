@@ -1,10 +1,11 @@
 """Unified model API (port of ``repro.models.api``): ``build(cfg, plan)``.
 
 The handle carries the config, the plan, the family, ``n_params()`` and
-``forward`` for the families ported so far: the dense language models
-(``LMConfig``), ViT/DeiT and ResNet.  ``init`` makes the model's module,
-which stands for the reference's parameter pytree: ``forward(model, x)``
-takes it as the reference's ``forward(params, x)`` takes the tree.
+``forward`` for the families ported so far: the language models
+(``LMConfig``: dense GQA, MLA and MoE), ViT/DeiT and ResNet.  ``init``
+makes the model's module, which stands for the reference's parameter
+pytree: ``forward(model, x)`` takes it as the reference's
+``forward(params, x)`` takes the tree.
 ``loss`` (training) and ``pspecs`` (sharding) are not ported yet.
 """
 from __future__ import annotations
@@ -59,4 +60,4 @@ def build(cfg, plan: ParallelPlan | None = None) -> ModelHandle:
             return model if dtype is None else model.to(dtype)
 
         return ModelHandle(cfg, plan, "vision", make, lambda m, images: m(images))
-    raise TypeError(f"config type {type(cfg).__name__} is not ported yet (ROADMAP A.8, A.12)")
+    raise TypeError(f"config type {type(cfg).__name__} is not ported yet (ROADMAP A.12: Swin, DiT, the UNet)")

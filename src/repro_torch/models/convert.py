@@ -3,25 +3,34 @@
 ``params_from_jax`` takes the reference's nested parameter dict with
 numpy leaves (``jax.tree.map(np.asarray, params)``; no JAX needed here)
 and returns a flat ``{dotted.name: tensor}`` state dict that keeps the
-JAX leaf names.  Stacked layers (``layers.all.<leaf>``, leading axis
-``n_layers``) are unstacked into ``layers.<i>.<leaf>``.  These leaves
-change layout, to the ones ``F.conv2d`` and ``F.linear`` take:
+JAX leaf names.  Stacked layers are unstacked: ``layers.all.<leaf>``
+(leading axis ``n_layers``) into ``layers.<i>.<leaf>``, and an MoE
+model's ``layers.dense`` (its first ``first_k_dense`` layers) and
+``layers.moe`` (the rest) into ``layers.0 .. kd-1`` and ``layers.kd ..``.
+These leaves change layout, to the ones ``F.conv2d`` and ``F.linear`` take:
 
 - conv ``w`` HWIO -> OIHW;
 - dense ``w``, ``mlp.wi`` and ``mlp.wo`` ``(in, out)`` -> ``(out, in)``;
 - attention ``wqkv`` ``(3, d, H, Dh)`` -> ``(3·H·Dh, d)`` and ``bqkv``
   ``(3, H, Dh)`` -> ``(3·H·Dh,)``, so the projection's output splits as
   (3, H, Dh);
-- attention ``wo`` ``(H, Dh, d)`` -> ``(d, H·Dh)``;
+- attention ``wo`` ``(H, Dh, d)`` -> ``(d, H·Dh)`` (MLA's ``(H, v, d)`` ->
+  ``(d, H·v)`` likewise);
 - the language models' ``wq``/``wk``/``wv`` ``(d, H, Dh)`` -> ``(H·Dh, d)``,
   ``bq``/``bk``/``bv`` ``(H, Dh)`` -> ``(H·Dh,)``, SwiGLU ``wg``/``wu``
   ``(d, d_ff)`` -> ``(d_ff, d)`` and ``wd`` ``(d_ff, d)`` -> ``(d, d_ff)``,
-  and ``unembed`` ``(d, V)`` -> ``(V, d)``.
+  and ``unembed`` ``(d, V)`` -> ``(V, d)``;
+- MLA's ``w_dkv`` ``(d, r + rope)`` -> ``(r + rope, d)`` and ``w_dq``
+  ``(d, q_r)`` -> ``(q_r, d)``; ``w_uk`` ``(r, H, nope)`` -> ``(H·nope, r)``,
+  ``w_uv`` ``(r, H, v)`` -> ``(H·v, r)`` and ``w_uq`` ``(q_r, H, qk)`` ->
+  ``(H·qk, q_r)``.
 
-Every other leaf keeps its shape (``embed`` (V, d) and the norms among
-them).  A ``layers`` tree split into ``{"dense", "moe"}`` groups (an MoE
-model) raises ``NotImplementedError``: MoE is not ported yet.  Values are copied exactly; bfloat16
-leaves stay bfloat16.
+The leaves right under an MoE layer's ``moe`` keep the reference's layout,
+which ``torch.bmm`` takes: ``router`` (d, E), ``wg``/``wu``/``wi`` (E, d, f),
+``wd``/``wo`` (E, f, d); its ``shared`` and ``dense`` MLPs follow the MLP
+rules above.  Every other leaf keeps its shape (``embed`` (V, d), the
+norms, MLA's ``kv_norm``/``q_norm`` among them).  Values are copied
+exactly; bfloat16 leaves stay bfloat16.
 """
 from __future__ import annotations
 
@@ -39,10 +48,10 @@ def _to_tensor(x) -> torch.Tensor:
 def _layout(key: str, t: torch.Tensor) -> torch.Tensor:
     if key == "w" and t.ndim == 4:
         return t.permute(3, 2, 0, 1)  # HWIO -> OIHW
-    if key in ("w", "wi", "wo", "wg", "wu", "wd", "unembed") and t.ndim == 2:
+    if key in ("w", "wi", "wo", "wg", "wu", "wd", "unembed", "w_dkv", "w_dq") and t.ndim == 2:
         return t.t()  # (in, out) -> (out, in)
-    if key in ("wq", "wk", "wv") and t.ndim == 3:
-        return t.reshape(t.shape[0], -1).t()  # (d, H, Dh) -> (H·Dh, d)
+    if key in ("wq", "wk", "wv", "w_uk", "w_uv", "w_uq") and t.ndim == 3:
+        return t.reshape(t.shape[0], -1).t()  # (in, H, Dh) -> (H·Dh, in)
     if key in ("bq", "bk", "bv"):
         return t.reshape(-1)
     if key == "wqkv":
@@ -64,18 +73,21 @@ def _n_layers(tree: dict) -> int:
     return _n_layers(leaf) if isinstance(leaf, dict) else np.asarray(leaf).shape[0]
 
 
-def params_from_jax(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+def params_from_jax(tree: dict, prefix: str = "", *, experts: bool = False) -> dict[str, torch.Tensor]:
+    """``experts``: ``tree`` is an MoE layer's ``moe`` subtree, whose own
+    leaves keep their layout."""
     out: dict[str, torch.Tensor] = {}
     for key, val in tree.items():
         name = f"{prefix}{key}"
-        if key == "layers" and isinstance(val, dict) and "moe" in val:
-            raise NotImplementedError("MoE layer groups are not ported yet (ROADMAP A.12)")
-        if key == "layers" and isinstance(val, dict) and set(val) == {"all"}:
-            for i in range(_n_layers(val["all"])):
-                out.update(params_from_jax(_layer(val["all"], i), prefix=f"{name}.{i}."))
+        if key == "layers" and isinstance(val, dict) and set(val) in ({"all"}, {"dense", "moe"}):
+            stacked = [val[g] for g in ("all", "dense", "moe") if g in val]
+            layers = [_layer(group, j) for group in stacked for j in range(_n_layers(group))]
+            for i, layer in enumerate(layers):
+                out.update(params_from_jax(layer, prefix=f"{name}.{i}."))
             continue
         if isinstance(val, dict):
-            out.update(params_from_jax(val, prefix=f"{name}."))
+            out.update(params_from_jax(val, prefix=f"{name}.", experts=key == "moe"))
             continue
-        out[name] = _layout(key, _to_tensor(val)).contiguous()
+        t = _to_tensor(val)
+        out[name] = (t if experts else _layout(key, t)).contiguous()
     return out

@@ -2,15 +2,18 @@
 
 Plain functions on tensors: the dense layer, LayerNorm and RMSNorm, partial
 rotary embeddings, the GQA head expansion, the reference's plain causal
-attention (whole and blockwise), and the GELU and SwiGLU MLPs.  Weights
-are in ``F.linear``'s ``(out, in)`` layout.  The ViT's attention core is
-``kernels.flash_attention.ops.attention``; the language models' prefill
+attention (whole and blockwise), and the GELU and SwiGLU MLPs; and the
+parameter shapes of the norms and MLPs (``norm_spec``/``mlp_spec``'s
+counterparts).  Weights are in ``F.linear``'s ``(out, in)`` layout.  The
+ViT's attention core is ``kernels.flash_attention.ops.attention``; the language models' prefill
 attention is ``attention_core`` here, as in the reference, where it is
 plain einsums and no Pallas kernel.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -116,6 +119,30 @@ def attention_blockwise(q, k, v, *, causal: bool, chunk: int = 1024) -> torch.Te
         m = m_new
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     return out.transpose(1, 2).to(q.dtype)
+
+
+class Leaf(NamedTuple):
+    """One parameter: its shape in the port's layout, the fan-in of the
+    reference layout's init (None for a constant: norm scales 1, biases 0),
+    and whether it is float32 whatever the model's dtype (norms, the MoE
+    router)."""
+
+    shape: tuple[int, ...]
+    fan_in: int | None
+    f32: bool = False
+
+
+def norm_shapes(d: int, kind: str) -> dict[str, Leaf]:
+    """``layers.py::norm_spec``: a float32 scale, and a bias for LayerNorm."""
+    names = ("scale",) if kind == "rmsnorm" else ("scale", "bias")
+    return {k: Leaf((d,), None, True) for k in names}
+
+
+def mlp_shapes(d: int, d_ff: int, act: str) -> dict[str, Leaf]:
+    """``layers.py::mlp_spec`` in ``F.linear``'s layout."""
+    if act == "swiglu":
+        return {"wg": Leaf((d_ff, d), d), "wu": Leaf((d_ff, d), d), "wd": Leaf((d, d_ff), d_ff)}
+    return {"wi": Leaf((d_ff, d), d), "wo": Leaf((d, d_ff), d_ff)}
 
 
 def apply_mlp(p, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:

@@ -1,25 +1,33 @@
-"""Decoder-only transformer LM, the dense GQA family (port of
-``repro.models.transformer``).
+"""Decoder-only transformer LM: GQA (+QKV bias), MLA (DeepSeek-V2) and MoE
+(port of ``repro.models.transformer``).
 
 Entry points, as in the reference:
-  lm_forward   — full-sequence causal forward -> (B, S, V) logits
+  lm_forward   — full-sequence causal forward -> ((B, S, V) logits, aux loss)
   lm_prefill   — full-sequence forward -> (last-token logits, KV cache)
   lm_decode    — one-token step against a fixed-length ring cache
 
 ``params`` is a ``TransformerLM``, whose parameter names are the reference
-pytree's leaves with the stacked layers unstacked (``layers.3.attn.wq``),
-as ``models/convert.py`` names them; weights are in ``F.linear``'s
+pytree's leaves with the stacked layers unstacked (``layers.3.attn.wq``;
+an MoE model's ``dense`` group first, then its ``moe`` group), as
+``models/convert.py`` names them.  Projections are in ``F.linear``'s
 ``(out, in)`` layout: ``wq`` ``(H·Dh, d)``, ``wk``/``wv`` ``(KH·Dh, d)``,
-``bq``/``bk``/``bv`` ``(H·Dh,)``/``(KH·Dh,)``, attention ``wo`` ``(d, H·Dh)``,
+``bq``/``bk``/``bv`` ``(H·Dh,)``/``(KH·Dh,)``, the fused ``wqkv``
+``(3·H·Dh, d)`` and ``bqkv`` ``(3·H·Dh,)``, attention ``wo`` ``(d, H·Dh)``,
 ``wg``/``wu`` ``(d_ff, d)``, ``wd`` ``(d, d_ff)``, ``embed`` and ``unembed``
-``(V, d)``.  Caches keep the reference's layout: ``k``/``v`` (L, B, S, KH, Dh)
-and, for an int8 cache, ``k_scale``/``v_scale`` (L, B, S, 1, 1) bf16.
+``(V, d)``; MLA's ``w_dkv`` ``(r + rope, d)``, ``w_uk`` ``(H·nope, r)``,
+``w_uv`` ``(H·v, r)``, ``wq`` ``(H·(nope + rope), d)`` (or ``w_dq``
+``(q_r, d)`` and ``w_uq`` ``(H·(nope + rope), q_r)``) and ``wo``
+``(d, H·v)``.  The MoE leaves are ``models/moe.py``'s.
 
-With ``ParallelPlan(kv_cache_dtype="int8", kv_scale_fold=True)`` every
-decode step's attention goes to ``kernels.int8_kv_decode.ops.decode_attention``:
-the hand-written CUDA kernel on the card, its plain version on the CPU.
-MLA (DeepSeek-V2), MoE layers and the fused QKV projection are not ported
-yet (ROADMAP A.12) and raise ``NotImplementedError``.
+Caches keep the reference's layout: ``k``/``v`` (L, B, S, KH, Dh), or for
+MLA the latent ``ckv`` (L, B, S, r) and ``k_rope`` (L, B, S, rope); an
+int8 cache adds a per-token bf16 ``<name>_scale`` (L, B, S, 1, 1) or
+(L, B, S, 1).  With ``ParallelPlan(kv_cache_dtype="int8",
+kv_scale_fold=True)`` every GQA decode step's attention goes to
+``kernels.int8_kv_decode.ops.decode_attention``: the hand-written CUDA
+kernel on the card, its plain version on the CPU.  The MLA decode, naive
+or absorbed (``mla_absorb``), is plain PyTorch, as it is plain jnp in the
+reference.
 """
 from __future__ import annotations
 
@@ -33,17 +41,19 @@ from torch import nn
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.int8_kv_decode.ops import decode_attention
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     F32,
+    Leaf,
     _expand_kv,
     apply_mlp,
     apply_norm,
     apply_rope,
     attention_blockwise,
     attention_core,
+    mlp_shapes,
+    norm_shapes,
 )
-
-NOT_PORTED = "is not ported yet (ROADMAP A.12)"
 
 
 @dataclass(frozen=True)
@@ -51,16 +61,17 @@ class ParallelPlan:
     """The reference's parallelism and analysis knobs, by the same names.
 
     On one card ``model_axis`` must be 1.  ``kv_cache_dtype`` (bf16 | int8),
-    ``kv_scale_fold`` and ``attn_chunk`` are honoured.  ``remat``,
-    ``analysis_unroll``, ``pad_attention_heads``, ``data_axis`` and
-    ``fused_unembed_loss`` do not change the numbers at ``model_axis`` 1
-    (or serve only the loss or MoE, which are not ported), so they are
-    accepted and ignored.  ``mla_absorb``,
-    ``fuse_qkv``, ``moe_grouped_dispatch`` and ``attn_mode="sp"`` raise
-    ``NotImplementedError``."""
+    ``kv_scale_fold``, ``attn_chunk``, ``mla_absorb``, ``fuse_qkv`` (MHA
+    only, as in the reference) and ``moe_grouped_dispatch`` (MoE prefill
+    and forward in ``data_axis`` groups when that divides the batch) are
+    honoured.  ``attn_mode`` "tp" and "sp" differ only in how the reference
+    shards attention, so on one card they compute the same.  ``remat``,
+    ``analysis_unroll``, ``pad_attention_heads`` and ``fused_unembed_loss``
+    do not change the numbers at ``model_axis`` 1 (or serve only the loss,
+    which is not ported), so they are accepted and ignored."""
 
     model_axis: int = 1
-    data_axis: int = 1
+    data_axis: int = 1  # the groups of grouped MoE dispatch
     attn_mode: str = "tp"  # tp | sp
     pad_attention_heads: bool = True
     mla_absorb: bool = False
@@ -75,16 +86,9 @@ class ParallelPlan:
 
 
 def check_supported(cfg: LMConfig, plan: ParallelPlan) -> None:
-    """Raise on what the port does not run: MLA, MoE and the plan options
-    that serve them or a mesh."""
-    for flag, what in ((cfg.use_mla, "MLA attention (use_mla)"), (cfg.moe is not None, "MoE layers (cfg.moe)"),
-                       (plan.mla_absorb, "absorbed MLA decode (mla_absorb)"),
-                       (plan.fuse_qkv, "the fused QKV projection (fuse_qkv)"),
-                       (plan.moe_grouped_dispatch, "grouped MoE dispatch (moe_grouped_dispatch)"),
-                       (plan.attn_mode == "sp", "sequence-parallel attention (attn_mode='sp')")):
-        if flag:
-            raise NotImplementedError(f"{what} {NOT_PORTED}")
-    if plan.attn_mode != "tp":
+    """Raise on what one card does not run (a model axis) and on an unknown
+    attention mode or cache dtype."""
+    if plan.attn_mode not in ("tp", "sp"):
         raise ValueError(f"attn_mode must be 'tp' or 'sp', got {plan.attn_mode!r}")
     if plan.model_axis != 1:
         raise ValueError(f"the port runs on one card: model_axis must be 1, got {plan.model_axis}")
@@ -94,8 +98,9 @@ def check_supported(cfg: LMConfig, plan: ParallelPlan) -> None:
 
 def effective_heads(cfg: LMConfig, plan: ParallelPlan) -> tuple[int, int]:
     """(q_heads, kv_heads).  The reference pads the heads up to a multiple
-    of ``model_axis``; at the one card's ``model_axis`` 1 that changes
-    nothing."""
+    of ``model_axis`` under ``attn_mode="tp"`` with ``pad_attention_heads``
+    and leaves them unpadded otherwise; at the one card's ``model_axis`` 1
+    padding changes nothing."""
     return cfg.n_heads, cfg.n_kv_heads
 
 
@@ -104,47 +109,82 @@ def effective_heads(cfg: LMConfig, plan: ParallelPlan) -> tuple[int, int]:
 # --------------------------------------------------------------------------- #
 
 
-def _param_shapes(cfg: LMConfig, plan: ParallelPlan) -> dict[str, tuple[tuple[int, ...], int | None]]:
-    """{name: (shape in the port's layout, fan-in of the reference layout,
-    or None for a constant: a norm scale (1) or a bias (0))}."""
-    d, Dh, f, V = cfg.d_model, cfg.d_head, cfg.d_ff, cfg.vocab_size
-    h, kh = effective_heads(cfg, plan)
-    norm = ("scale",) if cfg.norm == "rmsnorm" else ("scale", "bias")
-    out: dict[str, tuple[tuple[int, ...], int | None]] = {"embed": ((V, d), d)}
-    for i in range(cfg.n_layers):
-        pre = f"layers.{i}."
-        layer = {"attn.wq": ((h * Dh, d), d * h), "attn.wk": ((kh * Dh, d), d * kh),
-                 "attn.wv": ((kh * Dh, d), d * kh), "attn.wo": ((d, h * Dh), h * Dh)}
-        if cfg.qkv_bias:
-            layer.update({"attn.bq": ((h * Dh,), None), "attn.bk": ((kh * Dh,), None),
-                          "attn.bv": ((kh * Dh,), None)})
-        if cfg.ffn_act == "swiglu":
-            layer.update({"mlp.wg": ((f, d), d), "mlp.wu": ((f, d), d), "mlp.wd": ((d, f), f)})
+def _attn_shapes(cfg: LMConfig, plan: ParallelPlan) -> dict[str, Leaf]:
+    """``transformer.py::_attn_spec`` in the port's layout, with the
+    reference layout's fan-ins."""
+    d, Dh = cfg.d_model, cfg.d_head
+    if cfg.use_mla:
+        H, r, rope = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        qk = cfg.qk_nope_head_dim + rope
+        out = {"w_dkv": Leaf((r + rope, d), d), "w_uk": Leaf((H * cfg.qk_nope_head_dim, r), r * H),
+               "w_uv": Leaf((H * cfg.v_head_dim, r), r * H), "wo": Leaf((d, H * cfg.v_head_dim), H * cfg.v_head_dim),
+               **{"kv_norm." + k: v for k, v in norm_shapes(r, "rmsnorm").items()}}
+        if cfg.q_lora_rank:
+            qr = cfg.q_lora_rank
+            out.update({"w_dq": Leaf((qr, d), d), "w_uq": Leaf((H * qk, qr), qr * H),
+                        **{"q_norm." + k: v for k, v in norm_shapes(qr, "rmsnorm").items()}})
         else:
-            layer.update({"mlp.wi": ((f, d), d), "mlp.wo": ((d, f), f)})
-        for ln in ("ln1", "ln2"):
-            layer.update({f"{ln}.{k}": ((d,), None) for k in norm})
-        out.update({pre + k: v for k, v in layer.items()})
-    out.update({f"final_norm.{k}": ((d,), None) for k in norm})
-    if not cfg.tie_embeddings:
-        out["unembed"] = ((V, d), d)
+            out["wq"] = Leaf((H * qk, d), d * H)
+        return out
+    h, kh = effective_heads(cfg, plan)
+    if plan.fuse_qkv and kh == h:
+        out = {"wqkv": Leaf((3 * h * Dh, d), 3 * d * h), "wo": Leaf((d, h * Dh), h * Dh)}
+        if cfg.qkv_bias:
+            out["bqkv"] = Leaf((3 * h * Dh,), None)
+        return out
+    out = {"wq": Leaf((h * Dh, d), d * h), "wk": Leaf((kh * Dh, d), d * kh),
+           "wv": Leaf((kh * Dh, d), d * kh), "wo": Leaf((d, h * Dh), h * Dh)}
+    if cfg.qkv_bias:
+        out.update(bq=Leaf((h * Dh,), None), bk=Leaf((kh * Dh,), None), bv=Leaf((kh * Dh,), None))
     return out
 
 
+def _param_shapes(cfg: LMConfig, plan: ParallelPlan) -> dict[str, Leaf]:
+    """{dotted name: Leaf} of the whole model (``lm_param_spec``): a layer at
+    or after ``moe.first_k_dense`` has ``moe``, the others ``mlp`` of width
+    ``first_dense_ff or d_ff``."""
+    d, V = cfg.d_model, cfg.vocab_size
+    out = {"embed": Leaf((V, d), d)}
+    for i in range(cfg.n_layers):
+        layer = {"ln1": norm_shapes(d, cfg.norm), "attn": _attn_shapes(cfg, plan), "ln2": norm_shapes(d, cfg.norm)}
+        if cfg.moe is not None and i >= cfg.moe.first_k_dense:
+            layer["moe"] = moe_lib.moe_shapes(d, cfg.moe, cfg.ffn_act)
+        else:
+            ff = (cfg.moe.first_dense_ff or cfg.d_ff) if cfg.moe is not None else cfg.d_ff
+            layer["mlp"] = mlp_shapes(d, ff, cfg.ffn_act)
+        out.update({f"layers.{i}.{g}.{k}": v for g, leaves in layer.items() for k, v in leaves.items()})
+    out.update({"final_norm." + k: v for k, v in norm_shapes(d, cfg.norm).items()})
+    if not cfg.tie_embeddings:
+        out["unembed"] = Leaf((V, d), d)
+    return out
+
+
+class ParamGroup(nn.Module):
+    """A node of the parameter tree: parameters and sub-groups by name, read
+    as ``p["wq"]`` and ``"bq" in p``, like the reference's nested dicts."""
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
 class TransformerLM(nn.Module):
-    """The weights of a dense GQA LM.
+    """The weights of an LM: dense GQA, MLA, MoE, or MLA with MoE.
 
     ``TransformerLM(cfg, plan, generator=g)`` draws them as
     ``models/ptree.py::tree_init`` does: normal, std 1/sqrt(fan_in) with the
-    reference layout's fan-in (the product of all dims but the last, so
-    d·H for ``wq``; H·Dh for ``wo``; d for ``embed``), norm scales 1 and
-    biases 0.  Each leaf is drawn on the generator's device in ``dtype`` and
-    copied into place, so a 12 B-parameter model drawn on the card never
-    passes through float32 or the host.  Norm parameters are float32, as
-    the reference's ``norm_spec`` makes them.  Without a generator the
-    weights are zeros, to be overwritten by ``load_state_dict``.  No
-    parameter requires grad (training is not ported), so the entry points
-    build no autograd graph.
+    reference layout's fan-in (the product of all dims but the last of the
+    per-layer shape, so d·H for ``wq``, H·Dh for ``wo``, d for ``embed``
+    and the router, E·d for an expert's ``wg``), norm scales 1 and biases
+    0.  Each leaf is drawn on the generator's device in its dtype and
+    copied into place, so a model drawn on the card never passes through
+    the host.  Norm parameters (``kv_norm`` and ``q_norm`` too) and the MoE
+    router are float32, as the reference's specs make them; the rest is in
+    ``dtype``.  Without a generator the weights are zeros, to be
+    overwritten by ``load_state_dict``.  No parameter requires grad
+    (training is not ported), so the entry points build no autograd graph.
     """
 
     def __init__(self, cfg: LMConfig, plan: ParallelPlan | None = None, *,
@@ -155,30 +195,27 @@ class TransformerLM(nn.Module):
         dev = resolve_device(device)
         self.cfg, self.plan = cfg, plan
         self._fan_in: dict[str, int] = {}
-        layers = []
-        for i in range(cfg.n_layers):
-            layers.append(nn.ModuleDict({"ln1": nn.ParameterDict(), "attn": nn.ParameterDict(),
-                                         "ln2": nn.ParameterDict(), "mlp": nn.ParameterDict()}))
-        self.layers = nn.ModuleList(layers)
-        self.final_norm = nn.ParameterDict()
-        for name, (shape, fan_in) in _param_shapes(cfg, plan).items():
-            is_norm = name.startswith("final_norm.") or ".ln" in name
-            p = nn.Parameter(torch.zeros(shape, dtype=F32 if is_norm else dtype, device=dev),
+        self.layers = nn.ModuleList(ParamGroup() for _ in range(cfg.n_layers))
+        self.final_norm = ParamGroup()
+        for name, leaf in _param_shapes(cfg, plan).items():
+            p = nn.Parameter(torch.zeros(leaf.shape, dtype=F32 if leaf.f32 else dtype, device=dev),
                              requires_grad=False)
-            if fan_in is not None:
-                self._fan_in[name] = fan_in
+            if leaf.fan_in is not None:
+                self._fan_in[name] = leaf.fan_in
             self._place(name, p)
         if generator is not None:
             self.reset_parameters(generator)
 
     def _place(self, name: str, p: nn.Parameter) -> None:
-        parts = name.split(".")
-        if len(parts) == 1:
-            self.register_parameter(name, p)
-        elif parts[0] == "final_norm":
-            self.final_norm[parts[1]] = p
-        else:
-            self.layers[int(parts[1])][parts[2]][parts[3]] = p
+        *path, leaf = name.split(".")
+        node = self
+        if path and path[0] == "layers":
+            node, path = self.layers[int(path[1])], path[2:]
+        for key in path:
+            if key not in node._modules:
+                node.add_module(key, ParamGroup())
+            node = node._modules[key]
+        node.register_parameter(leaf, p)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
@@ -197,33 +234,76 @@ class TransformerLM(nn.Module):
 
 
 def _gqa_qkv(p, x, cfg: LMConfig, positions):
-    """x (B, S, d) -> q (B, S, H, Dh), k and v (B, S, KH, Dh); bias, then
-    partial RoPE on q and k."""
+    """x (B, S, d) -> q (B, S, H, Dh), k and v (B, S, KH, Dh): one stacked
+    projection (``wqkv``) or three, bias, then partial RoPE on q and k."""
     B, S, _ = x.shape
     Dh = cfg.d_head
-    q = F.linear(x, p["wq"]).view(B, S, -1, Dh)
-    k = F.linear(x, p["wk"]).view(B, S, -1, Dh)
-    v = F.linear(x, p["wv"]).view(B, S, -1, Dh)
-    if "bq" in p:
-        q = q + p["bq"].view(-1, Dh)
-        k = k + p["bk"].view(-1, Dh)
-        v = v + p["bv"].view(-1, Dh)
+    if "wqkv" in p:
+        qkv = F.linear(x, p["wqkv"]).view(B, S, 3, -1, Dh)
+        if "bqkv" in p:
+            qkv = qkv + p["bqkv"].view(3, -1, Dh)
+        q, k, v = qkv.unbind(2)
+    else:
+        q = F.linear(x, p["wq"]).view(B, S, -1, Dh)
+        k = F.linear(x, p["wk"]).view(B, S, -1, Dh)
+        v = F.linear(x, p["wv"]).view(B, S, -1, Dh)
+        if "bq" in p:
+            q = q + p["bq"].view(-1, Dh)
+            k = k + p["bk"].view(-1, Dh)
+            v = v + p["bv"].view(-1, Dh)
     rot = int(cfg.d_head * cfg.rope_pct)
     q = apply_rope(q, positions, cfg.rope_theta, rot)
     k = apply_rope(k, positions, cfg.rope_theta, rot)
     return q, k, v
 
 
-def _self_attention(p, x, cfg: LMConfig, plan: ParallelPlan, positions):
-    """Full-sequence causal self-attention.  Returns (out @ wo, (k, v))."""
+def _mla_qkv(p, x, cfg: LMConfig, positions):
+    """x (B, S, d) -> q_nope (B, S, H, nope), q_rope (B, S, H, rope), the
+    normed latent ckv (B, S, r) and k_rope (B, S, rope), RoPE applied to
+    both rope parts (``transformer.py:202-216``)."""
     B, S, _ = x.shape
-    q, k, v = _gqa_qkv(p, x, cfg, positions)
-    k_e, v_e = _expand_kv(k, q.shape[2]), _expand_kv(v, q.shape[2])
-    if plan.attn_chunk and S > 2 * plan.attn_chunk:
-        out = attention_blockwise(q, k_e, v_e, causal=True, chunk=plan.attn_chunk)
+    H, nope, rope = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    if cfg.q_lora_rank:
+        cq = apply_norm(p["q_norm"], F.linear(x, p["w_dq"]), "rmsnorm")
+        q = F.linear(cq, p["w_uq"]).view(B, S, H, nope + rope)
     else:
-        out = attention_core(q, k_e, v_e, causal=True)
-    return F.linear(out.reshape(B, S, -1), p["wo"]), (k, v)
+        q = F.linear(x, p["wq"]).view(B, S, H, nope + rope)
+    q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta, rope)
+    ckv_full = F.linear(x, p["w_dkv"])
+    ckv = apply_norm(p["kv_norm"], ckv_full[..., :cfg.kv_lora_rank], "rmsnorm")
+    k_rope = apply_rope(ckv_full[:, :, None, cfg.kv_lora_rank:], positions, cfg.rope_theta, rope)[:, :, 0]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _mla_expand(p, ckv, k_rope, n_heads: int):
+    """The latent ckv (B, S, r) and k_rope (B, S, rope) -> k (B, S, H,
+    nope + rope), k_rope shared by every head, and v (B, S, H, v)."""
+    B, S, _ = ckv.shape
+    k_nope = F.linear(ckv, p["w_uk"]).view(B, S, n_heads, -1)
+    v = F.linear(ckv, p["w_uv"]).view(B, S, n_heads, -1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, n_heads, k_rope.shape[-1])], dim=-1)
+    return k, v
+
+
+def _self_attention(p, x, cfg: LMConfig, plan: ParallelPlan, positions):
+    """Full-sequence causal self-attention.  Returns (out @ wo, the layer's
+    cache entries: {"k", "v"}, or MLA's {"ckv", "k_rope"}).  MLA's softmax
+    scale 1/sqrt(nope + rope) is ``attention_core``'s 1/sqrt of q's head."""
+    B, S, _ = x.shape
+    if cfg.use_mla:
+        q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, cfg, positions)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k, v = _mla_expand(p, ckv, k_rope, cfg.n_heads)
+        cache = {"ckv": ckv, "k_rope": k_rope}
+    else:
+        q, k, v = _gqa_qkv(p, x, cfg, positions)
+        cache = {"k": k, "v": v}
+        k, v = _expand_kv(k, q.shape[2]), _expand_kv(v, q.shape[2])
+    if plan.attn_chunk and S > 2 * plan.attn_chunk:
+        out = attention_blockwise(q, k, v, causal=True, chunk=plan.attn_chunk)
+    else:
+        out = attention_core(q, k, v, causal=True)
+    return F.linear(out.reshape(B, S, -1), p["wo"]), cache
 
 
 def _quantize(x: torch.Tensor, first_reduced: int):
@@ -238,13 +318,14 @@ def _quantize(x: torch.Tensor, first_reduced: int):
 
 
 def _quantize_slot(x: torch.Tensor):
-    """One new cache entry (B, 1, KH, Dh) (``transformer.py:253-258``)."""
+    """One new cache entry (B, 1, ...) (``transformer.py:253-258``)."""
     return _quantize(x, 2)
 
 
 def _quantize_cache(cache: dict, plan: ParallelPlan) -> dict:
-    """A stacked (L, B, S, KH, Dh) cache -> int8 with (L, B, S, 1, 1) bf16
-    scales (``transformer.py:535-544``); unchanged for a bf16 plan."""
+    """A stacked (L, B, S, ...) cache -> int8 with per-token bf16 scales
+    (L, B, S, 1, ...) (``transformer.py:535-544``); unchanged for a bf16
+    plan."""
     if plan.kv_cache_dtype != "int8":
         return cache
     out = {}
@@ -254,8 +335,8 @@ def _quantize_cache(cache: dict, plan: ParallelPlan) -> dict:
 
 
 def _cache_write(cache: dict, name: str, new: torch.Tensor, slot: int, layer: int) -> None:
-    """Write one token's K or V (B, 1, KH, Dh) into ring slot ``slot`` of
-    layer ``layer``, quantized if the cache is int8.  The write is in place,
+    """Write one token's entry (B, 1, ...) into ring slot ``slot`` of layer
+    ``layer``, quantized if the cache is int8.  The write is in place,
     PyTorch's idiom; the reference returns an updated copy."""
     if name + "_scale" in cache:
         q, s = _quantize_slot(new)
@@ -289,15 +370,48 @@ def _gqa_decode_attention(q, k, v):
     return out.reshape(B, T, H, Dh)
 
 
+def _mla_decode_attention(p, x, cfg: LMConfig, plan: ParallelPlan, cache: dict, pos: int, layer: int):
+    """MLA's one-token attention (``transformer.py:316-338``): write the new
+    latent and k_rope into slot ``pos % S``, read this layer's through
+    bf16, then either expand them to K and V per head (naive) or, with
+    ``plan.mla_absorb``, score and mix in the latent space: q_nope·W_uk
+    against ckv, plus q_rope against k_rope, and the mixed latent through
+    W_uv.  The MLA branch ignores ``kv_scale_fold``, as the reference does.
+    Returns (B, 1, H, v)."""
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, ckv_new, k_rope_new = _mla_qkv(p, x, cfg, positions)
+    slot = pos % cache["ckv"].shape[2]
+    _cache_write(cache, "ckv", ckv_new, slot, layer)
+    _cache_write(cache, "k_rope", k_rope_new, slot, layer)
+    ckv, k_rope = _cache_read(cache, "ckv", layer), _cache_read(cache, "k_rope", layer)
+    if not plan.mla_absorb:
+        k, v = _mla_expand(p, ckv.to(x.dtype), k_rope.to(x.dtype), cfg.n_heads)
+        return attention_core(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=False)
+    H, r = cfg.n_heads, cfg.kv_lora_rank
+    w_uk = p["w_uk"].view(H, cfg.qk_nope_head_dim, r)
+    w_uv = p["w_uv"].view(H, cfg.v_head_dim, r)
+    q_lat = torch.einsum("bthk,hkr->bthr", q_nope, w_uk)
+    s_lat = torch.einsum("bthr,bsr->bths", q_lat, ckv.to(q_lat.dtype))
+    s_rope = torch.einsum("bthk,bsk->bths", q_rope, k_rope.to(q_rope.dtype))
+    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    probs = torch.softmax((s_lat + s_rope).to(F32) * scale, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bths,bsr->bthr", probs, ckv.to(probs.dtype))
+    return torch.einsum("bthr,hkr->bthk", o_lat, w_uv)
+
+
 def _decode_attention(p, x, cfg: LMConfig, plan: ParallelPlan, cache: dict, pos: int, layer: int):
     """One-token attention against the ring cache (slot ``pos % S``): this
     layer's slot is written in place, then its slice is read.
 
-    Three branches, as in the reference: a bf16 cache; an int8 cache read
-    through a bf16 dequantized copy; and an int8 cache with
-    ``kv_scale_fold``, which goes to ``decode_attention`` (the CUDA kernel on
-    the card) with the scales as f32 (B, S).  Returns out @ wo."""
+    MLA goes to ``_mla_decode_attention``.  GQA has three branches, as in
+    the reference: a bf16 cache; an int8 cache read through a bf16
+    dequantized copy; and an int8 cache with ``kv_scale_fold``, which goes
+    to ``decode_attention`` (the CUDA kernel on the card) with the scales as
+    f32 (B, S).  Returns out @ wo."""
     B = x.shape[0]
+    if cfg.use_mla:
+        out = _mla_decode_attention(p, x, cfg, plan, cache, pos, layer)
+        return F.linear(out.reshape(B, 1, -1), p["wo"])
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _gqa_qkv(p, x, cfg, positions)
     slot = pos % cache["k"].shape[2]
@@ -326,21 +440,34 @@ def _unembed(params, x):
     return F.linear(x, table.to(x.dtype))
 
 
+def _ffn(p, x, cfg: LMConfig, groups: int = 1):
+    """The layer's FFN on the normed x: (out, aux), aux 0 for a dense MLP."""
+    if "moe" in p:
+        return moe_lib.apply_moe(p["moe"], x, cfg.moe, cfg.ffn_act, groups=groups)
+    return apply_mlp(p["mlp"], x, cfg.ffn_act), torch.zeros((), dtype=F32, device=x.device)
+
+
 def _layer_fwd(p, x, cfg: LMConfig, plan: ParallelPlan, positions):
-    attn_out, kv = _self_attention(p["attn"], apply_norm(p["ln1"], x, cfg.norm), cfg, plan, positions)
+    """Returns (x, the layer's aux loss, its cache entries).  Grouped MoE
+    dispatch takes ``plan.data_axis`` groups."""
+    attn_out, cache = _self_attention(p["attn"], apply_norm(p["ln1"], x, cfg.norm), cfg, plan, positions)
     x = x + attn_out
-    return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm), cfg.ffn_act), kv
+    groups = plan.data_axis if plan.moe_grouped_dispatch else 1
+    ff, aux = _ffn(p, apply_norm(p["ln2"], x, cfg.norm), cfg, groups)
+    return x + ff, aux, cache
 
 
 def lm_hidden(params, tokens, cfg: LMConfig, plan: ParallelPlan):
     """(B, S) -> final-normed hidden states (B, S, d) and the MoE aux loss
-    (0 for a dense model)."""
+    summed over layers (an f32 0 for a dense model)."""
     check_supported(cfg, plan)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = params.embed[tokens]
+    total = torch.zeros((), dtype=F32, device=x.device)
     for layer in params.layers:
-        x, _ = _layer_fwd(layer, x, cfg, plan, positions)
-    return apply_norm(params.final_norm, x, cfg.norm), torch.zeros((), dtype=F32, device=x.device)
+        x, aux, _ = _layer_fwd(layer, x, cfg, plan, positions)
+        total = total + aux
+    return apply_norm(params.final_norm, x, cfg.norm), total
 
 
 def lm_forward(params, tokens, cfg: LMConfig, plan: ParallelPlan):
@@ -352,32 +479,36 @@ def lm_forward(params, tokens, cfg: LMConfig, plan: ParallelPlan):
 def cache_spec(cfg: LMConfig, plan: ParallelPlan, batch: int, seq: int) -> dict:
     """{name: (shape, dtype)} of a decode KV cache of length ``seq``."""
     check_supported(cfg, plan)
-    _, kh = effective_heads(cfg, plan)
     L = cfg.n_layers
     dt = torch.int8 if plan.kv_cache_dtype == "int8" else torch.bfloat16
-    out = {name: ((L, batch, seq, kh, cfg.d_head), dt) for name in ("k", "v")}
+    if cfg.use_mla:
+        out = {"ckv": ((L, batch, seq, cfg.kv_lora_rank), dt),
+               "k_rope": ((L, batch, seq, cfg.qk_rope_head_dim), dt)}
+    else:
+        _, kh = effective_heads(cfg, plan)
+        out = {name: ((L, batch, seq, kh, cfg.d_head), dt) for name in ("k", "v")}
     if plan.kv_cache_dtype == "int8":
-        for name in ("k", "v"):
-            out[name + "_scale"] = ((L, batch, seq, 1, 1), torch.bfloat16)
+        for name, (shape, _) in list(out.items()):
+            out[name + "_scale"] = (shape[:3] + (1,) * (len(shape) - 3), torch.bfloat16)
     return out
 
 
 def lm_prefill(params, tokens, cfg: LMConfig, plan: ParallelPlan):
     """(B, S) -> (last-token logits (B, V), stacked KV cache).
 
-    Each layer's K and V go into the stacked cache as soon as the layer has
-    run, quantized per layer for an int8 plan (the same per-token amax as
-    the reference's whole-cache ``_quantize_cache``), so the float cache of
-    all layers is never held at once.  A bf16 plan keeps K and V in the
-    model's dtype, as the reference does."""
+    Each layer's cache entries go into the stacked cache as soon as the
+    layer has run, quantized per layer for an int8 plan (the same per-token
+    amax as the reference's whole-cache ``_quantize_cache``), so the float
+    cache of all layers is never held at once.  A bf16 plan keeps them in
+    the model's dtype, as the reference does."""
     check_supported(cfg, plan)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
     x = params.embed[tokens]
     cache: dict = {}
     for i, layer in enumerate(params.layers):
-        x, (k, v) = _layer_fwd(layer, x, cfg, plan, positions)
-        for name, t in _quantize_cache({"k": k[None], "v": v[None]}, plan).items():
+        x, _, entries = _layer_fwd(layer, x, cfg, plan, positions)
+        for name, t in _quantize_cache({k: v[None] for k, v in entries.items()}, plan).items():
             if name not in cache:
                 cache[name] = torch.empty((cfg.n_layers,) + tuple(t.shape[1:]), dtype=t.dtype,
                                           device=t.device)
@@ -387,14 +518,15 @@ def lm_prefill(params, tokens, cfg: LMConfig, plan: ParallelPlan):
 
 
 def lm_decode(params, cache: dict, token, pos: int, cfg: LMConfig, plan: ParallelPlan):
-    """One decode step: token (B,) int, ``pos`` a Python int; the new K/V
-    go to ring slot ``pos % S`` of ``cache``, in place.  Returns
-    ((B, V) logits, the same cache)."""
+    """One decode step: token (B,) int, ``pos`` a Python int; the new cache
+    entries go to ring slot ``pos % S`` of ``cache``, in place.  MoE layers
+    dispatch in one group, as in the reference.  Returns ((B, V) logits,
+    the same cache)."""
     check_supported(cfg, plan)
     x = params.embed[token[:, None]]
     for i, layer in enumerate(params.layers):
         h = apply_norm(layer["ln1"], x, cfg.norm)
         x = x + _decode_attention(layer["attn"], h, cfg, plan, cache, pos, i)
-        x = x + apply_mlp(layer["mlp"], apply_norm(layer["ln2"], x, cfg.norm), cfg.ffn_act)
+        x = x + _ffn(layer, apply_norm(layer["ln2"], x, cfg.norm), cfg)[0]
     x = apply_norm(params.final_norm, x, cfg.norm)
     return _unembed(params, x)[:, 0], cache

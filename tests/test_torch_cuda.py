@@ -24,7 +24,11 @@ bfloat16 q (one bf16 step of the output where the two f32 results straddle
 a rounding); bit for bit from call to call and under CUDA-graph replay;
 through a stablelm-smoke
 prefill and int8-fold decode, card against CPU, the logits within 1e-4
-and the greedy tokens equal.  The round engine (``serving/engine_torch.py``)
+and the greedy tokens equal.  The language-model zoo, card against CPU,
+float32, TF32 off: an MoE layer (routes and capacity drops equal, outputs
+within 1e-5, aux within 1e-6), deepseek-v2-lite-smoke's MLA decode naive
+and absorbed (logits within 1e-4), and Arctic-480B's attention geometry
+(G = 7) decoding through the kernel (logits within 2e-3).  The round engine (``serving/engine_torch.py``)
 on the card against the CPU: integer outputs equal, floats within the
 differential tolerances (``cumsum`` is a parallel scan on the card); its
 step syncs nothing with the host and its CUDA-graph replay equals the
@@ -618,6 +622,122 @@ def test_stablelm_smoke_fold_decode_card_matches_cpu(cuda_device):
         assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.fixture
+def no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _lm_card_and_cpu(cfg, plan, device, seed=0):
+    from repro_torch.models.transformer import TransformerLM
+
+    cpu = TransformerLM(cfg, plan, generator=torch.Generator().manual_seed(seed), device="cpu",
+                        dtype=torch.float32)
+    card = TransformerLM(cfg, plan, device=device, dtype=torch.float32)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 2])
+def test_moe_layer_card_matches_cpu(cuda_device, no_tf32, groups):
+    """One MoE layer at arctic-smoke's expert widths with 16 experts, a
+    dense residual and a shared expert, float32: the same routes (every
+    token's k-th and (k+1)-th gates apart by more than 1e-5), the same
+    capacity drops (a router pulled toward expert 5 overflows it), outputs
+    within 1e-5 and the aux loss within 1e-6."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+
+    cfg = MoEConfig(n_routed=16, top_k=2, d_ff_expert=96, n_shared=1, dense_residual_ff=96)
+    d, gen = 64, torch.Generator().manual_seed(5)
+    p = {}
+    for name, leaf in moe.moe_shapes(d, cfg, "swiglu").items():
+        w = torch.randn(leaf.shape, generator=gen) / np.sqrt(leaf.fan_in)
+        node = p
+        for key in name.split(".")[:-1]:
+            node = node.setdefault(key, {})
+        node[name.split(".")[-1]] = w
+    p["router"][:, 5] += 0.05
+    x = torch.randn(4, 32, d, generator=gen) + 0.5
+    out = {}
+    for dev in ("cpu", cuda_device):
+        pd = {k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict) else v.to(dev)) for k, v in p.items()}
+        xf = x.to(dev).reshape(groups, -1, d)
+        gates, _, top_i = moe.route(pd["router"], xf, cfg)
+        srt = torch.sort(gates, dim=-1, descending=True).values
+        assert float((srt[..., 1] - srt[..., 2]).min()) > 1e-5
+        y, aux = moe.apply_moe(pd, x.to(dev), cfg, "swiglu", groups=groups)
+        out[str(dev)] = (top_i.cpu(), y.cpu(), float(aux))
+    (ti_c, y_c, a_c), (ti_g, y_g, a_g) = out["cpu"], out[str(cuda_device)]
+    assert torch.equal(ti_c, ti_g)
+    assert int((ti_c == 5).sum()) > moe.capacity_for(128 // groups, cfg) * groups  # expert 5 overflows
+    torch.testing.assert_close(y_g, y_c, rtol=0, atol=1e-5)
+    assert abs(a_g - a_c) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("absorb", [False, True], ids=["naive", "absorbed"])
+def test_mla_decode_card_matches_cpu(cuda_device, no_tf32, absorb):
+    """deepseek-v2-lite-smoke in float32 (MLA and an MoE layer): prefill,
+    then four decode steps past a ring wrap, naive or absorbed, card
+    against CPU within 1e-4 and the greedy tokens equal; no hand-written
+    kernel runs."""
+    from repro_torch.configs.deepseek_v2_lite_16b import SMOKE as DSV2_SMOKE
+    from repro_torch.models.transformer import ParallelPlan, lm_decode, lm_prefill
+
+    plan = ParallelPlan(mla_absorb=absorb, pad_attention_heads=False)
+    cpu, card = _lm_card_and_cpu(DSV2_SMOKE, plan, cuda_device, seed=1)
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(0, DSV2_SMOKE.vocab_size, (2, 10)))
+    lc, cache_c = lm_prefill(cpu, tokens, DSV2_SMOKE, plan)
+    lg, cache_g = lm_prefill(card, tokens.to(cuda_device), DSV2_SMOKE, plan)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
+    before = kv_kernel.int8_kv_decode.launches
+    for pos in range(10, 14):
+        tok = lc.argmax(-1)
+        assert torch.equal(lg.argmax(-1).cpu(), tok)
+        lc, cache_c = lm_decode(cpu, cache_c, tok, pos, DSV2_SMOKE, plan)
+        lg, cache_g = lm_decode(card, cache_g, tok.to(cuda_device), pos, DSV2_SMOKE, plan)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
+    assert kv_kernel.int8_kv_decode.launches == before
+    assert cache_g["ckv"].device.type == cuda_device.type and cache_g["ckv"].shape == cache_c["ckv"].shape
+
+
+@pytest.mark.cuda
+def test_arctic_geometry_fold_decode_card_matches_cpu(cuda_device, no_tf32):
+    """Arctic-480B's attention geometry (56 query heads over 8 KV heads of
+    128: G = 7) at d 512, one layer of 8 experts and a dense residual, int8
+    cache with the scales folded: the card's decode goes through the
+    kernel, the CPU's through the plain version; logits within 2e-3 (one
+    int8 step of a cache entry where the devices' f32 K/V straddle a
+    rounding boundary) and the greedy tokens equal."""
+    import dataclasses
+
+    from repro_torch.configs.arctic_480b import FULL as ARCTIC
+    from repro_torch.models.transformer import ParallelPlan, lm_decode, lm_prefill
+
+    cfg = dataclasses.replace(ARCTIC, name="arctic-geometry", n_layers=1, d_model=512, d_ff=256, vocab_size=512,
+                              moe=dataclasses.replace(ARCTIC.moe, n_routed=8, d_ff_expert=256,
+                                                      dense_residual_ff=256))
+    plan = ParallelPlan(kv_cache_dtype="int8", kv_scale_fold=True)
+    cpu, card = _lm_card_and_cpu(cfg, plan, cuda_device, seed=2)
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 40)))
+    lc, cache_c = lm_prefill(cpu, tokens, cfg, plan)
+    lg, cache_g = lm_prefill(card, tokens.to(cuda_device), cfg, plan)
+    before = kv_kernel.int8_kv_decode.launches
+    for pos in range(40, 44):
+        tok = lc.argmax(-1)
+        assert torch.equal(lg.argmax(-1).cpu(), tok)
+        lc, cache_c = lm_decode(cpu, cache_c, tok, pos, cfg, plan)
+        lg, cache_g = lm_decode(card, cache_g, tok.to(cuda_device), pos, cfg, plan)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=2e-3)
+    assert kv_kernel.int8_kv_decode.launches == before + 4
+    assert cache_g["k"].shape == (1, 2, 40, 8, 128)
+    assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))
 
 
 def _fleet_backlog(S, mb, seed):

@@ -132,13 +132,6 @@ def test_params_from_jax_lm_layouts(jcfg, tcfg):
         np.testing.assert_array_equal(sd["layers.0.attn.bk"].numpy(), a["bk"][0].reshape(-1))
 
 
-def test_params_from_jax_rejects_moe_layer_groups():
-    tree = {"layers": {"dense": {"ln1": {"scale": np.ones((1, 4))}},
-                       "moe": {"ln1": {"scale": np.ones((1, 4))}}}}
-    with pytest.raises(NotImplementedError, match="A.12"):
-        params_from_jax(tree)
-
-
 def test_random_init_follows_tree_init():
     """Fan-in-scaled normal draws (std 1/sqrt(d·H) for wq, 1/sqrt(H·Dh)
     for wo), norm scales 1 and biases 0 in f32, weights in the dtype asked."""
@@ -158,22 +151,6 @@ def test_transformer_lm_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tt.TransformerLM(stablelm_12b.SMOKE)
-
-
-@pytest.mark.parametrize("jcfg", [JAX_DSV2_SMOKE, JAX_ARCTIC_SMOKE], ids=["mla", "moe"])
-def test_mla_and_moe_configs_raise(jcfg):
-    cfg = _port_cfg(jcfg)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tt.TransformerLM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tapi.build(cfg)
-
-
-@pytest.mark.parametrize("kw", [dict(fuse_qkv=True), dict(mla_absorb=True), dict(attn_mode="sp"),
-                                dict(moe_grouped_dispatch=True)], ids=lambda kw: next(iter(kw)))
-def test_unported_plan_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tt.TransformerLM(qwen15_32b.SMOKE, tt.ParallelPlan(**kw), device="cpu")
 
 
 def test_plan_needs_one_card():
