@@ -1,11 +1,10 @@
 """Model configurations and the arch registry (port of
-``repro.configs.base``: ResNet, ViT, Swin and the language models so far).
+``repro.configs.base``): ResNet, ViT, Swin, the diffusion models (DiT and
+the UNet) and the language models, the reference's whole zoo.
 
 ``LMConfig`` keeps every field of the reference's, the MoE and MLA ones
 included, so that configs read the same; ``models/transformer.py`` runs
 all of them: dense GQA, MLA and MoE.
-``SwinConfig`` is the configuration only (the split planner's catalog
-reads it); the Swin model is not ported (ROADMAP A.12).
 
 The registry covers the configs the port has.  An ``ArchSpec`` carries no
 shape set: the reference's per-family shapes feed its launch scaffolding,
@@ -92,6 +91,97 @@ class SwinConfig:
                 total += 4 * dim * self.dims[i + 1]  # patch merging
         total += self.dims[-1] * self.n_classes
         return int(total)
+
+
+@dataclass(frozen=True)
+class DiTConfig:
+    name: str
+    img_res: int  # nominal training resolution
+    patch: int  # patch size on the latent grid
+    n_layers: int
+    d_model: int
+    n_heads: int
+    in_channels: int = 4
+    latent_factor: int = 8  # img -> latent downsampling (SD VAE)
+    n_classes: int = 1000
+    learn_sigma: bool = True
+    family: str = "diffusion"
+
+    @property
+    def d_ff(self) -> int:
+        return 4 * self.d_model
+
+    @property
+    def param_count(self) -> int:
+        """The reference's formula; ``build(cfg).n_params()`` counts the tree."""
+        d = self.d_model
+        per_layer = 4 * d * d + 2 * d * self.d_ff + 6 * d * d + 2 * d  # attn + mlp + adaLN mod
+        x_emb = self.in_channels * self.patch**2 * d
+        t_emb = 256 * d + d * d
+        y_emb = (self.n_classes + 1) * d
+        out_ch = self.in_channels * (2 if self.learn_sigma else 1)
+        final = d * self.patch**2 * out_ch + 2 * d * d
+        return per_layer * self.n_layers + x_emb + t_emb + y_emb + final
+
+    active_param_count = param_count
+
+
+@dataclass(frozen=True)
+class UNetConfig:
+    name: str
+    img_res: int
+    latent_res: int
+    in_channels: int = 4
+    ch: int = 320
+    ch_mult: tuple[int, ...] = (1, 2, 4)
+    n_res_blocks: int = 2
+    transformer_depth: tuple[int, ...] = (1, 2, 10)
+    ctx_dim: int = 2048
+    head_dim: int = 64
+    latent_factor: int = 8
+    family: str = "diffusion"
+
+    @property
+    def param_count(self) -> int:
+        """The analytic estimate; ``build(cfg).n_params()`` counts the tree."""
+        return unet_param_estimate(self)
+
+    active_param_count = param_count
+
+
+def unet_param_estimate(c: UNetConfig) -> int:
+    """Analytic estimate (resblocks + transformer blocks + in/out): a copy
+    of ``repro.configs.base.unet_param_estimate``."""
+
+    def res_block(cin, cout):
+        return 9 * cin * cout + 9 * cout * cout + (cin * cout if cin != cout else 0) + 4 * c.ch * cout
+
+    def tf_block(ch):
+        # self-attn + cross-attn + geglu ff (4x)
+        return 4 * ch * ch + 2 * ch * c.ctx_dim + 2 * ch * ch + 8 * ch * ch + 4 * ch * ch
+
+    total = 9 * c.in_channels * c.ch + 9 * c.ch * c.in_channels  # conv in/out
+    total += c.ch * 4 * c.ch + 4 * c.ch * 4 * c.ch  # time embed MLP
+    chans = [c.ch * m for m in c.ch_mult]
+    prev = c.ch
+    for i, ch in enumerate(chans):
+        for _ in range(c.n_res_blocks):
+            total += res_block(prev, ch)
+            total += c.transformer_depth[i] * tf_block(ch)
+            prev = ch
+        if i < len(chans) - 1:
+            total += 9 * ch * ch  # downsample conv
+    # mid
+    total += 2 * res_block(prev, prev) + c.transformer_depth[-1] * tf_block(prev)
+    # up path (mirror, with skip concat)
+    for i, ch in reversed(list(enumerate(chans))):
+        for _ in range(c.n_res_blocks + 1):
+            total += res_block(prev + ch, ch)
+            total += c.transformer_depth[i] * tf_block(ch)
+            prev = ch
+        if i > 0:
+            total += 9 * ch * ch
+    return int(total)
 
 
 @dataclass(frozen=True)
@@ -192,7 +282,7 @@ def _lm_param_breakdown(c: LMConfig) -> dict[str, int]:
 @dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str  # lm | moe-lm | vision
+    family: str  # lm | moe-lm | diffusion | vision
     full: object
     smoke: object
     source: str  # public citation
@@ -214,8 +304,7 @@ def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in _REGISTRY:
         _load_all()
     if arch_id not in _REGISTRY:
-        raise KeyError(f"unknown arch {arch_id!r}; the port has {sorted(_REGISTRY)}"
-                       " (the rest of the reference's zoo: ROADMAP A.12)")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]()
 
 
@@ -230,9 +319,11 @@ def _load_all() -> None:
         arctic_480b,
         deepseek_v2_lite_16b,
         deit_b,
+        dit_b2,
         qwen15_32b,
         resnet_50,
         stablelm_12b,
         swin_b,
+        unet_sdxl,
         vit_s16,
     )

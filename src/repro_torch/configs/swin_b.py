@@ -1,8 +1,8 @@
 """swin-b — Swin Transformer Base. [arXiv:2103.14030]
 
 img_res=224 patch=4 window=7, depths 2-2-18-2, dims 128-256-512-1024.
-The configuration only (the split planner's catalog reads it); the Swin
-model is not ported (ROADMAP A.12).
+The model is ``models/swin.py``; the split planner's catalog reads this
+configuration too.
 """
 from repro_torch.configs.base import ArchSpec, SwinConfig, register
 

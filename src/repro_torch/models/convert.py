@@ -23,13 +23,18 @@ These leaves change layout, to the ones ``F.conv2d`` and ``F.linear`` take:
 - MLA's ``w_dkv`` ``(d, r + rope)`` -> ``(r + rope, d)`` and ``w_dq``
   ``(d, q_r)`` -> ``(q_r, d)``; ``w_uk`` ``(r, H, nope)`` -> ``(H·nope, r)``,
   ``w_uv`` ``(r, H, v)`` -> ``(H·v, r)`` and ``w_uq`` ``(q_r, H, qk)`` ->
-  ``(H·qk, q_r)``.
+  ``(H·qk, q_r)``;
+- DiT's ``t_embed.w1``/``w2`` ``(in, out)`` -> ``(out, in)``;
+- the UNet's ``self_q``/``self_k``/``self_v`` and ``cross_q``/``cross_k``/
+  ``cross_v`` ``(in, H, Dh)`` -> ``(H·Dh, in)``, and ``self_o``/``cross_o``
+  ``(H, Dh, d)`` -> ``(d, H·Dh)``.
 
 The leaves right under an MoE layer's ``moe`` keep the reference's layout,
 which ``torch.bmm`` takes: ``router`` (d, E), ``wg``/``wu``/``wi`` (E, d, f),
 ``wd``/``wo`` (E, f, d); its ``shared`` and ``dense`` MLPs follow the MLP
 rules above.  Every other leaf keeps its shape (``embed`` (V, d), the
-norms, MLA's ``kv_norm``/``q_norm`` among them).  Values are copied
+norms, MLA's ``kv_norm``/``q_norm``, Swin's ``rel_bias`` and DiT's
+``y_embed`` among them).  Values are copied
 exactly; bfloat16 leaves stay bfloat16.
 """
 from __future__ import annotations
@@ -48,9 +53,10 @@ def _to_tensor(x) -> torch.Tensor:
 def _layout(key: str, t: torch.Tensor) -> torch.Tensor:
     if key == "w" and t.ndim == 4:
         return t.permute(3, 2, 0, 1)  # HWIO -> OIHW
-    if key in ("w", "wi", "wo", "wg", "wu", "wd", "unembed", "w_dkv", "w_dq") and t.ndim == 2:
+    if key in ("w", "wi", "wo", "wg", "wu", "wd", "unembed", "w_dkv", "w_dq", "w1", "w2") and t.ndim == 2:
         return t.t()  # (in, out) -> (out, in)
-    if key in ("wq", "wk", "wv", "w_uk", "w_uv", "w_uq") and t.ndim == 3:
+    if key in ("wq", "wk", "wv", "w_uk", "w_uv", "w_uq", "self_q", "self_k", "self_v", "cross_q", "cross_k",
+               "cross_v") and t.ndim == 3:
         return t.reshape(t.shape[0], -1).t()  # (in, H, Dh) -> (H·Dh, in)
     if key in ("bq", "bk", "bv"):
         return t.reshape(-1)
@@ -58,7 +64,7 @@ def _layout(key: str, t: torch.Tensor) -> torch.Tensor:
         return t.permute(0, 2, 3, 1).reshape(-1, t.shape[1])  # (3, d, H, Dh) -> (3·H·Dh, d)
     if key == "bqkv":
         return t.reshape(-1)
-    if key == "wo" and t.ndim == 3:
+    if key in ("wo", "self_o", "cross_o") and t.ndim == 3:
         return t.reshape(-1, t.shape[-1]).t()  # (H, Dh, d) -> (d, H·Dh)
     return t
 

@@ -124,12 +124,14 @@ def attention_blockwise(q, k, v, *, causal: bool, chunk: int = 1024) -> torch.Te
 class Leaf(NamedTuple):
     """One parameter: its shape in the port's layout, the fan-in of the
     reference layout's init (None for a constant: norm scales 1, biases 0),
-    and whether it is float32 whatever the model's dtype (norms, the MoE
-    router)."""
+    whether it is float32 whatever the model's dtype (norms, the MoE
+    router), and the init's scale (``ts(..., scale=)``: the draw's std is
+    ``scale / sqrt(fan_in)``)."""
 
     shape: tuple[int, ...]
     fan_in: int | None
     f32: bool = False
+    scale: float = 1.0
 
 
 def norm_shapes(d: int, kind: str) -> dict[str, Leaf]:
@@ -159,3 +161,104 @@ def apply_mlp(p, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
     h = F.gelu(F.linear(x, p["wi"]).to(F32), approximate="tanh").to(x.dtype)
     return F.linear(h, p["wo"])
 
+
+
+class ParamGroup(nn.Module):
+    """A node of the parameter tree: parameters and sub-groups by name, read
+    as ``p["wq"]`` and ``"bq" in p``, like the reference's nested dicts;
+    iterating it yields its sub-groups in the order they were made
+    (``layers.0``, ``layers.1``, ...)."""
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+
+class ParamTree(ParamGroup):
+    """The weights of a model given as ``{dotted name: Leaf}``, placed in
+    nested ``ParamGroup``s under the reference's leaf names.
+
+    With a generator they are drawn as ``models/ptree.py::tree_init``
+    draws them: normal with std ``scale / sqrt(fan_in)``, norm scales 1 and
+    the rest 0; each leaf on the generator's device in its dtype, copied
+    into place.  Without one they are zeros, to be overwritten by
+    ``load_state_dict``.  Float32 leaves stay float32; the rest is in
+    ``dtype``.  No parameter requires grad (training is not ported)."""
+
+    def __init__(self, leaves: dict[str, Leaf], *, generator: torch.Generator | None = None,
+                 device=None, dtype=torch.bfloat16):
+        super().__init__()
+        from repro_torch.device import resolve_device
+
+        dev = resolve_device(device)
+        self.leaves = leaves
+        self._consts: dict = {}
+        for name, leaf in leaves.items():
+            *path, key = name.split(".")
+            node = self
+            for k in path:
+                if k not in node._modules:
+                    node.add_module(k, ParamGroup())
+                node = node._modules[k]
+            node.register_parameter(key, nn.Parameter(
+                torch.zeros(leaf.shape, dtype=F32 if leaf.f32 else dtype, device=dev), requires_grad=False))
+        if generator is not None:
+            self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator, zero_std: float = 0.0):
+        """Draw every leaf again.  ``zero_std`` > 0 draws the leaves that the
+        reference sets to 0 (biases, adaLN-Zero's modulation, a zero
+        ``proj_out``) from a normal of that std instead: on the reference's
+        init those leaves make a block's output exactly 0, so a forward on
+        such weights would never show its attention."""
+        gdev = generator.device
+        for name, p in self.named_parameters():
+            leaf = self.leaves[name]
+            if leaf.fan_in is not None:
+                std = leaf.scale / math.sqrt(max(leaf.fan_in, 1))
+            elif zero_std > 0 and not name.endswith(".scale"):
+                std = zero_std
+            else:
+                p.fill_(1.0 if name.endswith(".scale") else 0.0)
+                continue
+            p.copy_(torch.randn(p.shape, generator=generator, device=gdev, dtype=p.dtype).mul_(std))
+
+    def const(self, key: tuple, make) -> torch.Tensor:
+        """``make()`` (a host array) as a tensor on the model's device, made
+        once per ``key``, so that a forward copies no table from the host."""
+        dev = next(self.parameters()).device
+        if (key, dev) not in self._consts:
+            self._consts[key, dev] = torch.as_tensor(make(), device=dev)
+        return self._consts[key, dev]
+
+
+def sinusoidal_embedding(t: torch.Tensor, dim: int, max_period: float = 10_000.0) -> torch.Tensor:
+    """The diffusion timestep embedding (``layers.py:224``): t (B,) ->
+    (B, dim) float32, the cos half first, then the sin half."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period) * torch.arange(half, dtype=F32, device=t.device) / half)
+    ang = t.to(F32)[:, None] * freqs[None, :]
+    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+
+
+def _same_pad(n: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's SAME split (lo, hi) for one spatial dim of size ``n``: for
+    stride 2 on an even size the extra row or column goes at the end."""
+    out = -(-n // stride)
+    total = max((out - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_same(x, k: int, stride: int, value: float = 0.0):
+    """Pad an NCHW tensor as XLA's SAME does before a ``k`` x ``k`` window."""
+    (top, bottom), (left, right) = (_same_pad(x.shape[2], k, stride),
+                                    _same_pad(x.shape[3], k, stride))
+    if top == bottom == left == right == 0:
+        return x
+    return F.pad(x, (left, right, top, bottom), value=value)

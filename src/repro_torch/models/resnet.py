@@ -9,8 +9,8 @@ PyTorch's layouts (conv OIHW, head ``(classes, features)``).
 
 ``"SAME"`` padding in XLA is asymmetric for stride 2 (the extra row and
 column go at the end), which a symmetric ``padding=`` would shift: every
-conv and the max-pool pad explicitly with the split ``_same_pad`` computes
-from the input size.
+conv and the max-pool pad explicitly with the split ``layers._same_pad``
+computes from the input size.
 """
 from __future__ import annotations
 
@@ -22,22 +22,7 @@ from torch import nn
 
 from repro_torch.configs.base import ResNetConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import Dense
-
-
-def _same_pad(n: int, k: int, stride: int) -> tuple[int, int]:
-    """XLA's SAME split (lo, hi) for one spatial dim of size ``n``."""
-    out = -(-n // stride)
-    total = max((out - 1) * stride + k - n, 0)
-    return total // 2, total - total // 2
-
-
-def _pad_same(x, k: int, stride: int, value: float = 0.0):
-    (top, bottom), (left, right) = (_same_pad(x.shape[2], k, stride),
-                                    _same_pad(x.shape[3], k, stride))
-    if top == bottom == left == right == 0:
-        return x
-    return F.pad(x, (left, right, top, bottom), value=value)
+from repro_torch.models.layers import Dense, _pad_same
 
 
 class Conv(nn.Module):

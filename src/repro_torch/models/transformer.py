@@ -36,15 +36,14 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.configs.base import LMConfig
-from repro_torch.device import resolve_device
 from repro_torch.kernels.int8_kv_decode.ops import decode_attention
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     F32,
     Leaf,
+    ParamTree,
     _expand_kv,
     apply_mlp,
     apply_norm,
@@ -159,73 +158,25 @@ def _param_shapes(cfg: LMConfig, plan: ParallelPlan) -> dict[str, Leaf]:
     return out
 
 
-class ParamGroup(nn.Module):
-    """A node of the parameter tree: parameters and sub-groups by name, read
-    as ``p["wq"]`` and ``"bq" in p``, like the reference's nested dicts."""
-
-    def __getitem__(self, key: str):
-        return getattr(self, key)
-
-    def __contains__(self, key: str) -> bool:
-        return key in self._parameters or key in self._modules
-
-
-class TransformerLM(nn.Module):
+class TransformerLM(ParamTree):
     """The weights of an LM: dense GQA, MLA, MoE, or MLA with MoE.
 
-    ``TransformerLM(cfg, plan, generator=g)`` draws them as
-    ``models/ptree.py::tree_init`` does: normal, std 1/sqrt(fan_in) with the
-    reference layout's fan-in (the product of all dims but the last of the
-    per-layer shape, so d·H for ``wq``, H·Dh for ``wo``, d for ``embed``
-    and the router, E·d for an expert's ``wg``), norm scales 1 and biases
-    0.  Each leaf is drawn on the generator's device in its dtype and
-    copied into place, so a model drawn on the card never passes through
-    the host.  Norm parameters (``kv_norm`` and ``q_norm`` too) and the MoE
-    router are float32, as the reference's specs make them; the rest is in
-    ``dtype``.  Without a generator the weights are zeros, to be
-    overwritten by ``load_state_dict``.  No parameter requires grad
-    (training is not ported), so the entry points build no autograd graph.
+    ``TransformerLM(cfg, plan, generator=g)`` draws them as ``ParamTree``
+    does, with the reference layout's fan-in (the product of all dims but
+    the last of the per-layer shape, so d·H for ``wq``, H·Dh for ``wo``, d
+    for ``embed`` and the router, E·d for an expert's ``wg``).  Norm
+    parameters (``kv_norm`` and ``q_norm`` too) and the MoE router are
+    float32, as the reference's specs make them; the rest is in ``dtype``.
+    No parameter requires grad, so the entry points build no autograd
+    graph.  ``model.layers`` iterates the layers in order.
     """
 
     def __init__(self, cfg: LMConfig, plan: ParallelPlan | None = None, *,
                  generator: torch.Generator | None = None, device=None, dtype=torch.bfloat16):
-        super().__init__()
         plan = plan or ParallelPlan()
         check_supported(cfg, plan)
-        dev = resolve_device(device)
+        super().__init__(_param_shapes(cfg, plan), generator=generator, device=device, dtype=dtype)
         self.cfg, self.plan = cfg, plan
-        self._fan_in: dict[str, int] = {}
-        self.layers = nn.ModuleList(ParamGroup() for _ in range(cfg.n_layers))
-        self.final_norm = ParamGroup()
-        for name, leaf in _param_shapes(cfg, plan).items():
-            p = nn.Parameter(torch.zeros(leaf.shape, dtype=F32 if leaf.f32 else dtype, device=dev),
-                             requires_grad=False)
-            if leaf.fan_in is not None:
-                self._fan_in[name] = leaf.fan_in
-            self._place(name, p)
-        if generator is not None:
-            self.reset_parameters(generator)
-
-    def _place(self, name: str, p: nn.Parameter) -> None:
-        *path, leaf = name.split(".")
-        node = self
-        if path and path[0] == "layers":
-            node, path = self.layers[int(path[1])], path[2:]
-        for key in path:
-            if key not in node._modules:
-                node.add_module(key, ParamGroup())
-            node = node._modules[key]
-        node.register_parameter(leaf, p)
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator):
-        gdev = generator.device
-        for name, p in self.named_parameters():
-            if name in self._fan_in:
-                std = 1.0 / math.sqrt(max(self._fan_in[name], 1))
-                p.copy_(torch.randn(p.shape, generator=generator, device=gdev, dtype=p.dtype).mul_(std))
-            else:
-                p.fill_(1.0 if name.endswith(".scale") else 0.0)
 
 
 # --------------------------------------------------------------------------- #

@@ -33,7 +33,10 @@ on the card against the CPU: integer outputs equal, floats within the
 differential tolerances (``cumsum`` is a parallel scan on the card); its
 step syncs nothing with the host and its CUDA-graph replay equals the
 eager step bit for bit; the counter-jitter factors and every normal
-bit-equal on both devices.
+bit-equal on both devices.  Swin, DiT and the UNet (smoke configs, every
+zero-initialised leaf drawn) default to the card; card against CPU,
+float32, TF32 off, within 1e-4, DiT and the UNet launching the flash
+kernel once a layer or twice a transformer block, Swin and the CPU never.
 """
 import numpy as np
 import pytest
@@ -1030,3 +1033,87 @@ def test_multistream_torch_backend_defaults_to_the_card(cuda_device):
     for i, (a, b) in enumerate(zip(recs["cpu"], recs[None])):
         assert_round_equal(a, b, ctx=f"round {i}")
     assert metrics["cpu"].summary() == metrics[None].summary()
+
+
+def _unet_attention_calls(cfg) -> int:
+    """Flash launches of one UNet forward: a self and a cross call per
+    transformer block, down (n_res_blocks a stage), mid and up
+    (n_res_blocks + 1 a stage)."""
+    blocks = sum(d * (2 * cfg.n_res_blocks + 1) for d in cfg.transformer_depth) + cfg.transformer_depth[-1]
+    return 2 * blocks
+
+
+@pytest.mark.cuda
+def test_swin_dit_unet_default_to_the_card(cuda_device):
+    from repro_torch.configs.dit_b2 import SMOKE as DIT_SMOKE
+    from repro_torch.configs.swin_b import SMOKE as SWIN_SMOKE
+    from repro_torch.configs.unet_sdxl import SMOKE as UNET_SMOKE
+    from repro_torch.models.api import build
+
+    for cfg in (SWIN_SMOKE, DIT_SMOKE, UNET_SMOKE):
+        model = build(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+        assert all(p.is_cuda for p in model.parameters()), cfg.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["swin", "dit", "unet"])
+def test_swin_dit_unet_card_match_cpu_and_count_launches(cuda_device, no_tf32, which):
+    """float32, TF32 off, every zero-initialised leaf drawn: the card's
+    forward (DiT and the UNet through the flash kernel, the counted number
+    of launches; Swin through none) against the CPU's (which launches
+    nothing) within 1e-4, ``test_torch_vit.py``'s limit."""
+    from repro_torch.configs.dit_b2 import SMOKE as DIT_SMOKE
+    from repro_torch.configs.swin_b import SMOKE as SWIN_SMOKE
+    from repro_torch.configs.unet_sdxl import SMOKE as UNET_SMOKE
+    from repro_torch.models.dit import DiT
+    from repro_torch.models.swin import Swin
+    from repro_torch.models.unet import UNet
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rng = np.random.default_rng(5)
+        if which == "swin":
+            cls, cfg, calls = Swin, SWIN_SMOKE, 0
+            inputs = [torch.as_tensor(rng.standard_normal((3, 32, 32, 3)).astype(np.float32))]
+        elif which == "dit":
+            cls, cfg, calls = DiT, DIT_SMOKE, DIT_SMOKE.n_layers
+            inputs = [torch.as_tensor(rng.standard_normal((3, 4, 4, 4)).astype(np.float32)),
+                      torch.as_tensor([0, 499, 999]), torch.as_tensor([0, 5, 10])]
+        else:
+            cls, cfg, calls = UNet, UNET_SMOKE, _unet_attention_calls(UNET_SMOKE)
+            inputs = [torch.as_tensor(rng.standard_normal((2, 8, 8, 4)).astype(np.float32)),
+                      torch.as_tensor([3, 900]), torch.as_tensor(rng.standard_normal((2, 77, 64)).astype(np.float32))]
+        cpu = cls(cfg, device="cpu", dtype=torch.float32)
+        cpu.reset_parameters(torch.Generator().manual_seed(1), zero_std=0.02)
+        card = cls(cfg, device=cuda_device, dtype=torch.float32)
+        card.load_state_dict(cpu.state_dict())
+        before = fa_kernel.flash_attention.launches
+        with torch.inference_mode():
+            oc = cpu(*inputs)
+            assert fa_kernel.flash_attention.launches == before
+            og = card(*(t.to(cuda_device) for t in inputs))
+        assert fa_kernel.flash_attention.launches == before + calls
+        assert og.is_cuda and og.shape == oc.shape and float(oc.abs().max()) > 0.1
+        torch.testing.assert_close(og.cpu(), oc, rtol=0, atol=1e-4)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+def test_unet_bf16_launches_flash_at_each_attention(cuda_device):
+    """bf16 on the card: the self and the 77-key cross attention of every
+    transformer block launch the kernel, nothing falls back."""
+    from repro_torch.configs.unet_sdxl import SMOKE as UNET_SMOKE
+    from repro_torch.models.unet import UNet
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    model = UNet(UNET_SMOKE, generator=g, device=cuda_device)
+    model.reset_parameters(g, zero_std=0.02)
+    x = torch.randn(2, 8, 8, 4, generator=g, device="cuda").bfloat16()
+    ctx = torch.randn(2, 77, UNET_SMOKE.ctx_dim, generator=g, device="cuda").bfloat16()
+    before = fa_kernel.flash_attention.launches
+    with torch.inference_mode():
+        out = model(x, torch.tensor([10, 500], device="cuda"), ctx)
+    assert fa_kernel.flash_attention.launches == before + _unet_attention_calls(UNET_SMOKE) == before + 14
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()

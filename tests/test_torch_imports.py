@@ -19,8 +19,11 @@ for name in names:
 leaked = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
 assert not leaked, leaked
 assert "jaxlib" not in sys.modules
-# the round engine and its counter-mode jitter are among them
-assert {"repro_torch.serving.engine_torch", "repro_torch.core.threefry"} <= set(names)
+# the round engine and its counter-mode jitter are among them, and the
+# last model families with their configs
+assert {"repro_torch.serving.engine_torch", "repro_torch.core.threefry", "repro_torch.models.swin",
+        "repro_torch.models.dit", "repro_torch.models.unet", "repro_torch.configs.dit_b2",
+        "repro_torch.configs.unet_sdxl"} <= set(names)
 print(len(names))
 """
 

@@ -374,5 +374,5 @@ def test_api_forward_of_each_family_runs_its_model():
         h = tapi.build(cfg)
         model = h.init(torch.Generator().manual_seed(0), device="cpu")
         assert torch.equal(h.forward(model, images), model(images))
-    with pytest.raises(TypeError, match="not ported"):
+    with pytest.raises(TypeError, match="unknown config type"):
         tapi.build(object())

@@ -20,7 +20,8 @@ from repro_torch.configs.base import ResNetConfig
 from repro_torch.configs.resnet_50 import FULL, SMOKE
 from repro_torch.device import resolve_device
 from repro_torch.models.convert import params_from_jax
-from repro_torch.models.resnet import ResNet, _same_pad
+from repro_torch.models.layers import _same_pad
+from repro_torch.models.resnet import ResNet
 from repro_torch.quant import quantize as tq
 
 LOGIT_ATOL = 1e-4
