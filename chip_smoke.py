@@ -81,6 +81,18 @@ without them it exits non-zero before printing any result.  Phases:
      at ``gen_1024``: latents 4 x 128 x 128 x 4 and 77 text tokens, 4 of its
      50 denoise calls, 150 flash-attention launches a call (self-attention
      over up to 16,384 tokens, cross-attention over 77 keys).
+     3j. path 10, training: (a) the paper's two tiers trained on the card
+     (``bench/stack.py::build_stack``: 700 + 500 AdamW steps at batch 128
+     on the synthetic video), then Table I's calibrators on the
+     calibration split's holdout and the §V replay of the seven
+     approaches at 1 and 5 Mbps (``bench/approaches.py``; 5 calib-gate
+     launches for the 1,200-frame trace), each beside the JAX reference's
+     CPU numbers; (b) the ``Trainer`` on ResNet-50 FULL, 12 steps with a
+     checkpoint every 4: a run that crashes at step 6 and restarts from
+     its checkpoint ends bit-equal to an uninterrupted one (cuDNN
+     deterministic); (c) ``lm_loss`` at StableLM-12B FULL's widths cut to
+     2 layers, bf16, 2 x 4096 tokens in two micro-batches, 3 steps.  No
+     kernel runs under autograd: each wrapper raises there.
      Each path's kernel launch counts are set to 0 just before its run and
      read just after; then the same stream (paths 4 and 8: 8 more decode
      steps; path 5: the split fleet; path 6: the telemetry run, one cbo
@@ -101,7 +113,10 @@ without them it exits non-zero before printing any result.  Phases:
      kernel), card against CPU: the same routes and greedy tokens, and
      (4h) Swin-B FULL's logits on two frames, DiT at DiT-B/2's widths cut
      to 2 layers and the UNet at SDXL's widths cut to two stages, card
-     (the float32 flash kernel) against CPU (the plain version);
+     (the float32 flash kernel) against CPU (the plain version), and (4i)
+     training: the slow tier's loss and grads on one batch, one
+     ``apply_updates`` on equal inputs, and ``lm_loss`` with its grads at
+     4d's cut model, card against CPU;
   5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, and the script exits non-zero.
@@ -215,6 +230,30 @@ ZERO_STD = 0.02  # path 9 and phase 4h: the std of the leaves the reference sets
 CPU_SWIN_ATOL = 1e-4
 CPU_DIT_ATOL = 1e-4
 CPU_UNET_ATOL = 1e-4
+# path 10: the JAX reference's stack on a CPU (``benchmarks/common.py::build_stack(force=True)``,
+# ``bench_calibration.py``, ``approaches.py``), printed beside the card's as yardsticks: the two
+# packages draw their initial weights differently, so the checks are floors, not equalities
+REF_STACK = dict(fast=0.575, slow=0.690, by_res=(0.508, 0.599, 0.676, 0.696, 0.690), platt_a=-6.765,
+                 loss_slow=0.215, loss_fast=0.809)
+REF_TABLE1 = {"uncalibrated": (0.0962, 0.1653), "platt": (0.0568, 0.1470), "isotonic": (0.0347, 0.1043),
+              "temperature": (0.0669, 0.1519)}
+REF_APPROACHES = {"Local": (0.5558, 0.5558), "Server": (0.505, 0.685), "FastVA": (0.5558, 0.685),
+                  "Compress": (0.1958, 0.685), "CBO-w/o": (0.5558, 0.6433), "CBO": (0.5408, 0.6625),
+                  "Optimal": (0.5408, 0.6583)}
+TRAIN_LOSS_MAX = float(np.log(10) / 2)  # half of chance's cross-entropy over 10 classes
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 64, 12, 4, 6  # path 10 (b)
+LM_TRAIN_LAYERS, LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_ACCUM, LM_TRAIN_STEPS = 2, 4096, 2, 2, 3  # path 10 (c)
+# phase 4i, card vs CPU, float32, TF32 off: the loss within 1e-5 relative and
+# each grad leaf within 1e-4 of its scale (tests/test_torch_loss.py's rule,
+# cuDNN and cuBLAS against the CPU's sums); one AdamW step on equal inputs:
+# the same float32 operations a leaf, so the parameters within 1e-6 (a few
+# ulps of |p| <= ~4) and the moments within 1e-5 relative, the global norm's
+# sum and f32 pow being the parts that may round differently
+CPU_LOSS_RTOL = 1e-5
+CPU_GRAD_TOL = 1e-4
+CPU_UPDATE_ATOL = 1e-6
+CPU_MOMENT_RTOL = 1e-5
+LM_CPU_SEQ = 64
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2523,6 +2562,381 @@ def engine_card_vs_cpu() -> None:
               json.dumps(out["cuda"]))
 
 
+
+# --------------------------------------------------------------------------- #
+# Path 10: training
+# --------------------------------------------------------------------------- #
+
+
+def _grads_within(got: dict, ref: dict, tol: float, label: str) -> float:
+    """Every gradient leaf of ``got`` within ``tol`` of its scale in ``ref``:
+    the larger of the leaf's largest |grad| and 1e-3 of the model's (the
+    floor is for leaves whose gradient is 0 in exact arithmetic).  Returns
+    the largest gap over its scale."""
+    floor = 1e-3 * max(float(g.abs().max()) for g in ref.values())
+    worst = 0.0
+    for k, r in ref.items():
+        gap = float((got[k] - r).abs().max()) / max(float(r.abs().max()), floor)
+        check(gap <= tol, f"{label}: grad {k} off by {gap:.3e} of its scale (limit {tol})")
+        worst = max(worst, gap)
+    return worst
+
+
+def _step_events(trainer_cls):
+    """Patch ``trainer_cls.step`` to record CUDA events around each call;
+    returns (the list the events go to, a function that restores it)."""
+    import torch
+
+    real = trainer_cls.step
+    events = []
+
+    def step(self, batch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(self, batch)
+        end.record()
+        events.append((start, end))
+        return out
+
+    trainer_cls.step = step
+
+    def restore():
+        trainer_cls.step = real
+
+    return events, restore
+
+
+def stack_phase(counted):
+    """Path 10 (a): the paper's stack trained on the card (``bench/stack.py::
+    build_stack``: 700 slow-tier and 500 fast-tier steps at batch 128 on
+    ``make_dataset(DATA_CFG, 360, seed=0)``, the reference's learning rates
+    and seeds), then Table I's holdout (``bench_calibration.py``: fit on the
+    first half of the calibration split, score on the second) and the §V
+    replay of the seven approaches (``bench/approaches.py``) at 1 and 5
+    Mbps over the 1,200-frame test trace, whose calibrated confidences go
+    through the calib-gate kernel, 5 launches of up to 256 rows.  Returns
+    the launches."""
+    import torch
+
+    from repro_torch.bench import approaches as A
+    from repro_torch.bench import stack as C
+    from repro_torch.core.calibration import IsotonicCalibrator, PlattCalibrator, TemperatureCalibrator, ece, mce
+    from repro_torch.models.api import build
+    from repro_torch.train.trainer import Trainer
+
+    card = card_line()
+    for fn in counted.values():
+        fn.launches = 0
+    events, restore = _step_events(Trainer)
+    t0 = time.perf_counter()
+    try:
+        stack = C.build_stack("cuda", verbose=False)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ms = np.array([s.elapsed_time(e) for s, e in events])
+    log = stack.train_log
+    n_slow, n_fast = log["slow"]["steps"], log["fast"]["steps"]
+    check(len(ms) == n_slow + n_fast == 1200, f"path 10 (a): {len(ms)} training steps")
+    acc_fp, _ = C._accuracy(build(C.FAST_CFG).forward, stack.fast_params_fp, stack.calib["frames"],
+                            stack.calib["labels"])
+    print(f"path 10 on {card}: (a) the paper's stack, build_stack('cuda') {build_s:.2f} s (host clock)")
+    for name, tier_ms in (("slow", ms[:n_slow]), ("fast", ms[n_slow:])):
+        cfg = C.SLOW_CFG if name == "slow" else C.FAST_CFG
+        print(f"  {name} tier {cfg.name} (depths {cfg.depths}, width {cfg.width}): {log[name]['steps']} steps"
+              f" in {log[name]['seconds']:.2f} s; ms a step (events) mean {tier_ms.mean():.3f}, median"
+              f" {np.median(tier_ms):.3f}, min {tier_ms.min():.3f}, max {tier_ms.max():.3f}; logged losses"
+              f" {' '.join(f'{l:.4f}' for l in log[name]['losses'])}"
+              f" (reference's final {REF_STACK['loss_' + name]})")
+    by_res = stack.acc_server_by_res
+    print(f"  accuracy on the calibration split: fast int4 {stack.acc_fast:.4f} (reference {REF_STACK['fast']}),"
+          f" fast fp {acc_fp:.4f}, slow {stack.acc_slow:.4f} (reference {REF_STACK['slow']}); slow at"
+          f" {'/'.join(map(str, C.RESOLUTIONS))} px: {' / '.join(f'{a:.4f}' for a in by_res)} (reference"
+          f" {' / '.join(map(str, REF_STACK['by_res']))}); Platt (a, b) = ({stack.platt.a:.4f}, {stack.platt.b:.4f})"
+          f" (reference a {REF_STACK['platt_a']})")
+
+    # Table I, bench_calibration.py's holdout
+    conf, correct = stack.calib["conf"], stack.calib["correct"]
+    logits, labels = stack.calib["logits"], stack.calib["labels"]
+    n = len(conf) // 2
+    platt = PlattCalibrator.fit(conf[:n], correct[:n])
+    iso = IsotonicCalibrator.fit(conf[:n], correct[:n])
+    temp = TemperatureCalibrator.fit(logits[:n], labels[:n])
+    scored = {"uncalibrated": conf[n:], "platt": np.asarray(platt(conf[n:])), "isotonic": np.asarray(iso(conf[n:])),
+              "temperature": np.asarray(temp(logits[n:]))}
+    table1 = {k: (ece(c, correct[n:]), mce(c, correct[n:])) for k, c in scored.items()}
+    print("  Table I (fit on calibration frames 0-719, scored on 720-1439), ECE / MCE, card [reference]:",
+          "; ".join(f"{k} {e:.4f} / {m:.4f} [{REF_TABLE1[k][0]} / {REF_TABLE1[k][1]}]"
+                    for k, (e, m) in table1.items()))
+
+    # §V
+    t1 = time.perf_counter()
+    trace = A.build_trace(stack)
+    trace_s = time.perf_counter() - t1
+    launches = {name: fn.launches for name, fn in counted.items()}
+    table = {name: tuple(fn(trace, A.NetCfg(bandwidth_mbps=bw)) for bw in (1.0, 5.0))
+             for name, fn in A.APPROACHES.items()}
+    print(f"  §V replay over {len(trace)} test frames (build_trace {trace_s:.2f} s host), accuracy at 1 / 5 Mbps,"
+          " card [reference]:")
+    for name, (a1, a5) in table.items():
+        r1, r5 = REF_APPROACHES[name]
+        print(f"    {name:9s} {a1:.4f} / {a5:.4f}   [{r1} / {r5}]")
+
+    final = {name: log[name]["losses"][-1] for name in ("slow", "fast")}
+    check(all(np.isfinite(ms)) and all(l < TRAIN_LOSS_MAX for l in final.values()),
+          f"path 10 (a): final logged losses {final} (limit ln(10)/2 = {TRAIN_LOSS_MAX:.3f})")
+    check(stack.acc_fast >= 0.40 and stack.acc_slow >= 0.55,
+          f"path 10 (a): fast int4 {stack.acc_fast}, slow {stack.acc_slow} (floors 0.40, 0.55; chance 0.10)")
+    check(stack.acc_slow > stack.acc_fast, "path 10 (a): the slow tier is not above the fast tier")
+    check(by_res[-1] >= by_res[0] + 0.05, f"path 10 (a): slow tier by resolution {by_res}")
+    local = float((trace.fast_pred == trace.labels).mean())
+    check(table["Local"] == (local, local), f"path 10 (a): Local {table['Local']} vs fast-tier accuracy {local}")
+    n_gate = -(-len(trace) // C.EVAL_BATCH)
+    check(len(trace) == 1200 and launches["calib_gate"] == n_gate == 5,
+          f"path 10 (a): calib_gate launched {launches['calib_gate']} times for {len(trace)} frames")
+    for name in ("flash_attention", "int8_matmul", "int8_kv_decode"):
+        check(launches[name] == 0, f"path 10 (a): {name} launched {launches[name]} times")
+    check(all(0.0 <= a <= 1.0 for row in table.values() for a in row), f"path 10 (a): accuracies {table}")
+    return launches
+
+
+def trainer_phase(frames, labels, counted):
+    """Path 10 (b): the ``Trainer`` at full width, ResNet-50 FULL (224 px,
+    1,000 classes, f32) with AdamW(lr 3e-3, weight decay 1e-4) on path 1's
+    frames (``image_batch_fn``, batch 64), 12 steps, a checkpoint every 4
+    under ``build/path10_ckpt/``: a run that crashes at step 6 and
+    restarts (``run_with_restarts``) and an uninterrupted run from the
+    same weights, cuDNN deterministic, must end bit-equal."""
+    import shutil
+
+    import torch
+
+    from repro_torch.ckpt.manager import CheckpointManager, flatten
+    from repro_torch.configs.resnet_50 import FULL
+    from repro_torch.data.pipeline import DeterministicPipeline, PipelineConfig, image_batch_fn
+    from repro_torch.models.api import build
+    from repro_torch.models.resnet import ResNet
+    from repro_torch.train.optim import OptimConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    _free_card()
+    root = ROOT / "build" / "path10_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    init = ResNet(FULL, generator=torch.Generator(device="cuda").manual_seed(12), device="cuda").state_dict()
+    pipe = DeterministicPipeline(PipelineConfig(global_batch=TRAIN_BATCH, seed=0),
+                                 image_batch_fn({"frames": frames, "labels": labels.astype(np.int64)}), len(labels))
+    h = build(FULL)
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    for fn in counted.values():
+        fn.launches = 0
+    runs = {}
+    try:
+        for name, fail in (("restarted", TRAIN_FAIL_AT), ("uninterrupted", -1)):
+            model = ResNet(FULL, device="cuda")
+            model.load_state_dict(init)
+            tcfg = TrainConfig(n_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=str(root / name),
+                               log_every=TRAIN_CKPT_EVERY, fail_at_step=fail,
+                               ocfg=OptimConfig(lr=3e-3, weight_decay=1e-4))
+            tr = Trainer(tcfg, h.loss, model, pipe, device="cuda")
+            events, restore = _step_events(Trainer)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                out = tr.run_with_restarts(max_restarts=1) if fail >= 0 else tr.run()
+            finally:
+                restore()
+            torch.cuda.synchronize()
+            runs[name] = dict(trainer=tr, out=out, wall=time.perf_counter() - t0,
+                              ms=np.array([s.elapsed_time(e) for s, e in events]),
+                              peak=torch.cuda.max_memory_allocated() / 1e9)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    launches = {name: fn.launches for name, fn in counted.items()}
+    a, b = runs["restarted"]["trainer"], runs["uninterrupted"]["trainer"]
+    fa, fb = flatten(a.state), flatten(b.state)
+    unequal = [p for (p, x), (_, y) in zip(fa, fb) if not torch.equal(x, y)]
+    check([p for p, _ in fa] == [p for p, _ in fb], "path 10 (b): the two states differ in structure")
+    check(not unequal, f"path 10 (b): restarted vs uninterrupted differ in {len(unequal)} leaves, e.g. {unequal[:4]}")
+    check(len(runs["restarted"]["ms"]) == TRAIN_FAIL_AT + TRAIN_STEPS - TRAIN_FAIL_AT // TRAIN_CKPT_EVERY
+          * TRAIN_CKPT_EVERY and len(runs["uninterrupted"]["ms"]) == TRAIN_STEPS,
+          f"path 10 (b): steps taken {len(runs['restarted']['ms'])}, {len(runs['uninterrupted']['ms'])}")
+    check(a.ckpt.all_steps() == b.ckpt.all_steps() == [4, 8, 12], f"path 10 (b): checkpoints {a.ckpt.all_steps()}")
+    check(all(v == 0 for v in launches.values()), f"path 10 (b): kernel launches {launches}")
+    check(all(np.isfinite(l) for l in b.losses), f"path 10 (b): losses {b.losses}")
+    ck = root / "uninterrupted" / "step_12"
+    ck_bytes = sum(f.stat().st_size for f in ck.iterdir())
+    timed = CheckpointManager(str(root / "timed"))
+    t0 = time.perf_counter()
+    timed.save(12, b.state, blocking=True)
+    save_s = time.perf_counter() - t0
+    ms = runs["uninterrupted"]["ms"]
+    n_params = sum(p.numel() for p in b.model.parameters())
+    batch = b.to_device(pipe.batch_at(TRAIN_STEPS))
+    busy_ms, traced_ms = traced(lambda: b.step(batch), host_ops=False)
+    idle = "not measured" if busy_ms is None else f"{1 - busy_ms / traced_ms:.4f}"
+    print(f"  (b) Trainer, ResNet-50 FULL ({n_params} parameters, f32), batch {TRAIN_BATCH} at 224 px, AdamW lr 3e-3:"
+          f" {TRAIN_STEPS} steps, checkpoints at {a.ckpt.all_steps()}; a crash at step {TRAIN_FAIL_AT} restarted"
+          f" from step {TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY} ({len(runs['restarted']['ms'])} steps"
+          f" taken, {runs['restarted']['wall']:.2f} s) ends bit-equal to the uninterrupted run"
+          f" ({len(fa)} leaves: params, m, v, step, data_step) under cudnn.deterministic")
+    print(f"    uninterrupted: ms a step (events) mean {ms[1:].mean():.3f} (first {ms[0]:.3f}), images/s"
+          f" {TRAIN_BATCH / ms[1:].mean() * 1e3:.1f}; peak card memory {runs['uninterrupted']['peak']:.2f} GB;"
+          f" logged losses {' '.join(f'{l:.4f}' for l in b.losses)}; a checkpoint {ck_bytes / 1e6:.1f} MB,"
+          f" a blocking save {save_s:.3f} s (host clock); one traced step: device busy {busy_ms} ms of"
+          f" {traced_ms:.3f} ms wall, idle share {idle}")
+    shutil.rmtree(root, ignore_errors=True)
+    del a, b, runs
+    _free_card()
+    return launches
+
+
+def lm_train_phase(counted):
+    """Path 10 (c): ``lm_loss`` trained on the card at StableLM-12B FULL's
+    widths cut to 2 of its 40 layers (bf16 weights drawn on the card, bf16
+    moments), ``token_batch_fn(100352, 4096)``: two 2,048-token chunks of
+    the cross-entropy, ``global_batch`` 2 in 2 accumulated micro-batches,
+    3 steps through ``Trainer.step`` (``run`` would add a 10 GB final
+    checkpoint).  No hand-written kernel runs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.stablelm_12b import FULL as STABLELM
+    from repro_torch.data.pipeline import DeterministicPipeline, PipelineConfig, token_batch_fn
+    from repro_torch.models.api import build
+    from repro_torch.train.optim import OptimConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    _free_card()
+    cfg = dataclasses.replace(STABLELM, name="stablelm-12b-widths-2l", n_layers=LM_TRAIN_LAYERS)
+    h = build(cfg)
+    t0 = time.perf_counter()
+    model = h.init(torch.Generator(device="cuda").manual_seed(13), device="cuda")
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    n_params = sum(p.numel() for p in before.values())
+    pipe = DeterministicPipeline(PipelineConfig(global_batch=LM_TRAIN_BATCH, seed=0),
+                                 token_batch_fn(cfg.vocab_size, LM_TRAIN_SEQ), 10**6)
+    tcfg = TrainConfig(n_steps=LM_TRAIN_STEPS, grad_accum=LM_TRAIN_ACCUM, ckpt_dir=str(ROOT / "build" / "path10_lm"),
+                       ocfg=OptimConfig(m_dtype="bfloat16", v_dtype="bfloat16"))
+    tr = Trainer(tcfg, h.loss, model, pipe, device="cuda")
+    batches = [tr.to_device(pipe.batch_at(s)) for s in range(LM_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    print(f"set-up: {cfg.name}, {n_params} parameters in bf16 on the card, {time.perf_counter() - t0:.2f} s")
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, events = [], []
+    for batch in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(tr.step(batch))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {name: fn.launches for name, fn in counted.items()}
+    losses = [float(l) for l in losses]
+    ms = [s.elapsed_time(e) for s, e in events]
+    unchanged = [k for k, p in tr.state["params"].items() if torch.equal(p.detach(), before[k])]
+    check(all(np.isfinite(losses)), f"path 10 (c): losses {losses}")
+    check(not unchanged, f"path 10 (c): {len(unchanged)} parameters unchanged, e.g. {unchanged[:4]}")
+    check(all(v == 0 for v in launches.values()), f"path 10 (c): kernel launches {launches}")
+    check(int(tr.state["opt"]["step"]) == LM_TRAIN_STEPS, "path 10 (c): optimizer steps")
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    print(f"  (c) lm_loss, {cfg.name} (d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff"
+          f" {cfg.d_ff}, vocab {cfg.vocab_size}; 2 of 40 layers), bf16 weights and moments, {LM_TRAIN_BATCH} x"
+          f" {LM_TRAIN_SEQ} tokens a step in {LM_TRAIN_ACCUM} micro-batches: losses"
+          f" {' '.join(f'{l:.4f}' for l in losses)}; ms a step (events) {' '.join(f'{t:.1f}' for t in ms)},"
+          f" tokens/s {tokens / np.mean(ms[1:]) * 1e3:.0f} (steps 2-{LM_TRAIN_STEPS}); peak card memory {peak:.2f} GB;"
+          f" every parameter changed; launches {launches}")
+    del tr, model, before, batches
+    _free_card()
+    return launches
+
+
+def train_card_vs_cpu() -> None:
+    """Phase 4i, card against CPU, float32, TF32 off: one batch of 128 of the
+    slow tier's training data, loss and every grad; one ``apply_updates``
+    on the same params, grads and state copied to both devices; ``lm_loss``
+    and its grads at phase 4d's cut StableLM model."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.bench import stack as C
+    from repro_torch.configs.stablelm_12b import FULL as STABLELM
+    from repro_torch.data.pipeline import image_batch_fn, token_batch_fn
+    from repro_torch.data.video import make_dataset
+    from repro_torch.models.api import build
+    from repro_torch.train import optim
+
+    t0 = time.perf_counter()
+    data = make_dataset(C.DATA_CFG, 12, seed=0)
+    batch = image_batch_fn(data)(None, np.arange(128) % len(data["labels"]))
+    out = []
+    for dev in ("cpu", "cuda"):
+        model = C.init_tier(C.SLOW_CFG, 0, dev)
+        params = dict(model.named_parameters())
+        loss = build(C.SLOW_CFG).loss(model, {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out.append((float(loss.detach()), {k: g.cpu() for k, g in zip(params, grads)}, model))
+    (lc, gc, mc), (lg, gg, _) = out
+    check(abs(lg - lc) <= CPU_LOSS_RTOL * abs(lc), f"phase 4i: slow-tier loss card {lg} vs CPU {lc}")
+    worst = _grads_within(gg, gc, CPU_GRAD_TOL, "phase 4i slow tier")
+
+    # one AdamW step on identical inputs: params, the CPU's grads, a state at step 4
+    ocfg = optim.OptimConfig(lr=3e-3, weight_decay=1e-4)
+    rng = np.random.default_rng(4)
+    p0 = {k: v.detach().clone() for k, v in mc.named_parameters()}
+    m0 = {k: torch.as_tensor(rng.standard_normal(v.shape).astype(np.float32) * 1e-3) for k, v in p0.items()}
+    v0 = {k: torch.as_tensor(np.abs(rng.standard_normal(v.shape)).astype(np.float32) * 1e-5) for k, v in p0.items()}
+    upd = []
+    for dev in ("cpu", "cuda"):
+        st = {"step": torch.tensor(4, dtype=torch.int32, device=dev), "m": {k: v.to(dev).clone() for k, v in m0.items()},
+              "v": {k: v.to(dev).clone() for k, v in v0.items()}}
+        p, st = optim.apply_updates(ocfg, {k: v.to(dev).clone() for k, v in p0.items()},
+                                    {k: v.to(dev) for k, v in gc.items()}, st)
+        upd.append((optim.clip_factor(ocfg, {k: v.to(dev) for k, v in gc.items()}).item(),
+                    {k: v.detach().cpu() for k, v in p.items()}, {k: v.cpu() for k, v in st["m"].items()},
+                    {k: v.cpu() for k, v in st["v"].items()}))
+    (cc, pc, mcpu, vcpu), (cg, pg, mg, vg) = upd
+    p_gap = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+    m_gap = max(float(((mg[k] - mcpu[k]).abs() / mcpu[k].abs().clamp_min(1e-30)).max()) for k in pc)
+    v_gap = max(float(((vg[k] - vcpu[k]).abs() / vcpu[k].abs().clamp_min(1e-30)).max()) for k in pc)
+    n_eq = sum(int(torch.equal(pg[k], pc[k])) for k in pc)
+    check(abs(cg - cc) <= 4 * np.spacing(np.float32(cc)), f"phase 4i: clip factor card {cg} vs CPU {cc}")
+    check(p_gap <= CPU_UPDATE_ATOL and m_gap <= CPU_MOMENT_RTOL and v_gap <= CPU_MOMENT_RTOL,
+          f"phase 4i: apply_updates card vs CPU: params {p_gap}, m {m_gap}, v {v_gap}")
+
+    # lm_loss at phase 4d's cut model
+    cfg = dataclasses.replace(STABLELM, name="stablelm-12b-widths-2l", n_layers=2, vocab_size=4096)
+    h = build(cfg)
+    cpu = h.init(torch.Generator().manual_seed(3), device="cpu", dtype=torch.float32)
+    card = h.init(None, device="cuda", dtype=torch.float32)
+    card.load_state_dict(cpu.state_dict())
+    toks = token_batch_fn(cfg.vocab_size, LM_CPU_SEQ)(None, np.arange(2))
+    lm = []
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        loss = h.loss(model, {k: torch.as_tensor(v, device=dev) for k, v in toks.items()})
+        grads = torch.autograd.grad(loss, list(params.values()))
+        lm.append((float(loss.detach()), {k: g.cpu() for k, g in zip(params, grads)}))
+    (llc, lgc), (llg, lgg) = lm
+    check(abs(llg - llc) <= CPU_LOSS_RTOL * abs(llc), f"phase 4i: lm_loss card {llg} vs CPU {llc}")
+    lm_worst = _grads_within(lgg, lgc, CPU_GRAD_TOL, "phase 4i lm_loss")
+    print(f"phase 4i, training card vs CPU, float32, TF32 off: slow tier (batch 128) loss {lg:.6f} vs {lc:.6f},"
+          f" largest grad gap {worst:.3e} of its scale (limit {CPU_GRAD_TOL}); apply_updates at step 5: clip"
+          f" {cg!r} vs {cc!r}, params max |diff| {p_gap:.3e} (atol {CPU_UPDATE_ATOL}), {n_eq}/{len(pc)} leaves"
+          f" bit-equal, m / v max rel diff {m_gap:.3e} / {v_gap:.3e} (rtol {CPU_MOMENT_RTOL}); lm_loss at"
+          f" {cfg.name}, vocab 4096, 2 x {LM_CPU_SEQ} tokens: {llg:.6f} vs {llc:.6f}, largest"
+          f" grad gap {lm_worst:.3e} of its scale; {time.perf_counter() - t0:.2f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2666,6 +3080,14 @@ def main() -> int:
                                      "int8_kv_decode": kv_kernel.int8_kv_decode})
     phase_done("3i (path 9)")
 
+    # ---- 3j. path 10: the paper's stack trained, the Trainer, lm_loss ------ #
+    counted = {"calib_gate": cg_kernel.calib_gate, "flash_attention": fa_kernel.flash_attention,
+               "int8_matmul": i8_kernel.int8_matmul, "int8_kv_decode": kv_kernel.int8_kv_decode}
+    train_launches = stack_phase(counted)
+    for got in (trainer_phase(frames, labels, counted), lm_train_phase(counted)):
+        train_launches = {name: train_launches[name] + got[name] for name in counted}
+    phase_done("3j (path 10)")
+
     # ---- 4. card against CPU ---------------------------------------------- #
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2714,6 +3136,9 @@ def main() -> int:
 
     # ---- 4h. Swin-B, DiT-B/2's and UNet-SDXL's widths card against CPU ---- #
     diffusion_card_vs_cpu(frames)
+
+    # ---- 4i. training card against CPU ------------------------------------ #
+    train_card_vs_cpu()
     phase_done("4 (card against CPU)")
 
     # ---- 5. result -------------------------------------------------------- #
@@ -2725,7 +3150,7 @@ def main() -> int:
                     replaces="src/repro/kernels/fused_calib_gate/kernel.py:48",
                     launches=(launches["calib_gate"] + eval_launches["calib_gate"] + tel_launches["calib_gate"]
                               + eng_launches["calib_gate"] + zoo_launches["calib_gate"]
-                              + diff_launches["calib_gate"]),
+                              + diff_launches["calib_gate"] + train_launches["calib_gate"]),
                     max_abs_err=cg_err,
                     ms=cg_row["ms"], plain_ms=cg_row["plain_ms"],
                     bound_ms=cg_row["bound_ms"], bound_by=cg_row["bound_by"],
@@ -2735,7 +3160,8 @@ def main() -> int:
                     replaces="src/repro/kernels/flash_attention/kernel.py:62",
                     launches=(launches["flash_attention"] + eval_launches["flash_attention"]
                               + tel_launches["flash_attention"] + eng_launches["flash_attention"]
-                              + zoo_launches["flash_attention"] + diff_launches["flash_attention"]),
+                              + zoo_launches["flash_attention"] + diff_launches["flash_attention"]
+                              + train_launches["flash_attention"]),
                     max_abs_err=fa_err,
                     ms=fa_row["ms"], plain_ms=fa_row["plain_ms"],
                     bound_ms=fa_row["bound_ms"], bound_by=fa_row["bound_by"],
@@ -2745,7 +3171,7 @@ def main() -> int:
                     replaces="src/repro/kernels/int8_matmul/kernel.py:43",
                     launches=(launches["int8_matmul"] + eval_launches["int8_matmul"] + tel_launches["int8_matmul"]
                               + eng_launches["int8_matmul"] + zoo_launches["int8_matmul"]
-                              + diff_launches["int8_matmul"]),
+                              + diff_launches["int8_matmul"] + train_launches["int8_matmul"]),
                     max_abs_err=i8_err,
                     ms=i8_row["ms"], plain_ms=i8_row["plain_ms"],
                     bound_ms=i8_row["bound_ms"], bound_by=i8_row["bound_by"],
@@ -2755,7 +3181,8 @@ def main() -> int:
                     replaces="src/repro/kernels/int8_kv_decode/kernel.py:59",
                     launches=lm_launches["int8_kv_decode"] + eval_launches["int8_kv_decode"]
                     + tel_launches["int8_kv_decode"] + eng_launches["int8_kv_decode"]
-                    + zoo_launches["int8_kv_decode"] + diff_launches["int8_kv_decode"], max_abs_err=kv_err,
+                    + zoo_launches["int8_kv_decode"] + diff_launches["int8_kv_decode"]
+                    + train_launches["int8_kv_decode"], max_abs_err=kv_err,
                     ms=kv_row["ms"], plain_ms=kv_row["plain_ms"],
                     bound_ms=kv_row["bound_ms"], bound_by=kv_row["bound_by"],
                     library_ms=kv_row["library_ms"])]

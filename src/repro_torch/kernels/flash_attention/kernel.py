@@ -23,6 +23,8 @@ which the ``cp.async`` copies need.  Views into a fused qkv projection
 meet that at these head dims.  It raises on anything else: a CUDA tensor
 never takes the plain version or the other kernel, and a CPU tensor never
 reaches here (``ops.attention`` dispatches).
+Under autograd (grad enabled and a float input that requires grad) it
+raises: the kernel has no backward (``kernels.forbid_autograd``).
 ``flash_attention.launches`` counts launches, and only launches.
 """
 from __future__ import annotations
@@ -33,6 +35,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import forbid_autograd
 from repro_torch.kernels.build import CudaLibrary
 
 _P = ctypes.c_void_p
@@ -84,6 +87,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool) -> torch.Tensor:
     """q (B, Sq, H, D), k and v (B, Sk, H, D) on CUDA -> (B, Sq, H, D) in q's dtype."""
+    forbid_autograd("flash_attention", q, k, v)
     _check(q, k, v)
     B, Sq, H, D = q.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)

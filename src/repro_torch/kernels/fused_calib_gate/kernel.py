@@ -15,6 +15,8 @@ else: a CUDA tensor never takes the plain version, and a CPU tensor never
 reaches here (``ops.calibrated_gate`` dispatches).  A call is one launch,
 with no workspace and no state on the card, so calls may run at once on
 two streams and a call can be captured in a CUDA graph.
+Under autograd (grad enabled and a float input that requires grad) it
+raises: the kernel has no backward (``kernels.forbid_autograd``).
 ``calib_gate.launches`` counts launches, and only launches.
 """
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import forbid_autograd
 from repro_torch.kernels.build import CudaLibrary
 
 _P = ctypes.c_void_p
@@ -114,6 +117,7 @@ def plan_for(logits: torch.Tensor) -> SplitPlan:
 
 def calib_gate(logits: torch.Tensor, a: float, b: float, theta: float):
     """logits (B, V) f32, bf16 or f16 on CUDA -> (calibrated conf (B,) f32, gate (B,) bool)."""
+    forbid_autograd("calib_gate", logits)
     if not logits.is_cuda:
         raise ValueError(f"calib_gate launches a CUDA kernel; got a tensor on {logits.device}")
     if logits.dtype not in DTYPES:

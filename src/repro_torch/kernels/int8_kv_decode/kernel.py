@@ -17,8 +17,10 @@ contiguous int8 caches (B, S, KH, D) and contiguous float32 scales (B, S),
 all on one CUDA device, with S >= 1, D a multiple of 16 up to 256 and
 G = H/KH at most 8; it raises on anything else.  A CUDA tensor never takes
 the plain version, and a CPU tensor never reaches here (``ops``
-dispatches).  ``int8_kv_decode.launches`` counts launches, and only
-launches.
+dispatches).  Under autograd (grad enabled and a float input that
+requires grad) it raises: the kernel has no backward
+(``kernels.forbid_autograd``).  ``int8_kv_decode.launches`` counts
+launches, and only launches.
 
 A call allocates the output and, when S is split, one float32 buffer of
 partials; the per-(b, kv head) arrival counters live in one int32 buffer a
@@ -38,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import forbid_autograd
 from repro_torch.kernels.build import CudaLibrary
 
 _P = ctypes.c_void_p
@@ -157,6 +160,7 @@ def int8_kv_decode(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor, v_q: t
                    v_s: torch.Tensor) -> torch.Tensor:
     """q (B, H, D); k_q, v_q (B, S, KH, D) int8; k_s, v_s (B, S) f32, on CUDA
     -> (B, H, D) in q's dtype."""
+    forbid_autograd("int8_kv_decode", q, k_q, k_s, v_q, v_s)
     _check(q, k_q, k_s, v_q, v_s)
     B, H, D = q.shape
     S, KH = k_q.shape[1], k_q.shape[2]

@@ -19,7 +19,9 @@ raises on anything else: a CUDA tensor never takes the plain version, and
 a CPU tensor never reaches here (``ops`` dispatches).  Operands whose rows
 are not 16-byte aligned take the kernel's byte-load copies.
 ``int8_matmul_acc`` returns the raw int32 accumulator, so a check can hold
-the integer product itself to the plain version.  ``int8_matmul.launches``
+the integer product itself to the plain version.  Under autograd (grad
+enabled and a float input that requires grad) either raises: the kernel
+has no backward (``kernels.forbid_autograd``).  ``int8_matmul.launches``
 counts launches of the kernel by either function, and only launches.
 
 A call allocates only its output.  Nothing in a call waits on the card,
@@ -35,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import forbid_autograd
 from repro_torch.kernels.build import CudaLibrary
 
 _P = ctypes.c_void_p
@@ -150,6 +153,7 @@ def _check_scale(name: str, s: torch.Tensor, device, shapes) -> None:
 
 
 def _launch(x_q, x_scale, w_q, w_scale, mode: int, out_dtype: torch.dtype) -> torch.Tensor:
+    forbid_autograd("int8_matmul", x_q, x_scale, w_q, w_scale)
     _check_operand("x_q", x_q, torch.int8, x_q.device)
     _check_operand("w_q", w_q, torch.int8, x_q.device)
     if x_q.ndim != 2 or w_q.ndim != 2:

@@ -188,7 +188,8 @@ class ParamTree(ParamGroup):
     the rest 0; each leaf on the generator's device in its dtype, copied
     into place.  Without one they are zeros, to be overwritten by
     ``load_state_dict``.  Float32 leaves stay float32; the rest is in
-    ``dtype``.  No parameter requires grad (training is not ported)."""
+    ``dtype``.  No parameter requires grad: serving builds no autograd
+    graph.  ``train/trainer.py`` turns grad on for the leaves it trains."""
 
     def __init__(self, leaves: dict[str, Leaf], *, generator: torch.Generator | None = None,
                  device=None, dtype=torch.bfloat16):

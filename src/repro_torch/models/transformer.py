@@ -3,6 +3,7 @@
 
 Entry points, as in the reference:
   lm_forward   — full-sequence causal forward -> ((B, S, V) logits, aux loss)
+  lm_loss      — mean next-token cross-entropy + MoE aux (training)
   lm_prefill   — full-sequence forward -> (last-token logits, KV cache)
   lm_decode    — one-token step against a fixed-length ring cache
 
@@ -36,6 +37,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels.int8_kv_decode.ops import decode_attention
@@ -64,10 +66,11 @@ class ParallelPlan:
     only, as in the reference) and ``moe_grouped_dispatch`` (MoE prefill
     and forward in ``data_axis`` groups when that divides the batch) are
     honoured.  ``attn_mode`` "tp" and "sp" differ only in how the reference
-    shards attention, so on one card they compute the same.  ``remat``,
+    shards attention, so on one card they compute the same.  ``remat``
+    checkpoints each layer of ``lm_hidden`` under autograd.
     ``analysis_unroll``, ``pad_attention_heads`` and ``fused_unembed_loss``
-    do not change the numbers at ``model_axis`` 1 (or serve only the loss,
-    which is not ported), so they are accepted and ignored."""
+    do not change the numbers at ``model_axis`` 1, so they are accepted
+    and ignored."""
 
     model_axis: int = 1
     data_axis: int = 1  # the groups of grouped MoE dispatch
@@ -167,7 +170,8 @@ class TransformerLM(ParamTree):
     for ``embed`` and the router, E·d for an expert's ``wg``).  Norm
     parameters (``kv_norm`` and ``q_norm`` too) and the MoE router are
     float32, as the reference's specs make them; the rest is in ``dtype``.
-    No parameter requires grad, so the entry points build no autograd
+    No parameter requires grad until a trainer turns it on
+    (``train/trainer.py``), so the serving entry points build no autograd
     graph.  ``model.layers`` iterates the layers in order.
     """
 
@@ -408,23 +412,62 @@ def _layer_fwd(p, x, cfg: LMConfig, plan: ParallelPlan, positions):
     return x + ff, aux, cache
 
 
-def lm_hidden(params, tokens, cfg: LMConfig, plan: ParallelPlan):
-    """(B, S) -> final-normed hidden states (B, S, d) and the MoE aux loss
-    summed over layers (an f32 0 for a dense model)."""
+def lm_hidden(params, tokens, cfg: LMConfig, plan: ParallelPlan, *, final_norm: bool = True):
+    """(B, S) -> hidden states (B, S, d), final-normed unless
+    ``final_norm=False``, and the MoE aux loss summed over layers (an f32 0
+    for a dense model).  Under autograd with ``plan.remat`` each layer runs
+    under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
+    a train-mode layer): its activations are recomputed in the backward."""
     check_supported(cfg, plan)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = params.embed[tokens]
     total = torch.zeros((), dtype=F32, device=x.device)
-    for layer in params.layers:
+    remat = plan.remat and torch.is_grad_enabled()
+
+    def layer_fwd(layer, x):
         x, aux, _ = _layer_fwd(layer, x, cfg, plan, positions)
+        return x, aux
+
+    for layer in params.layers:
+        x, aux = checkpoint(layer_fwd, layer, x, use_reentrant=False) if remat else layer_fwd(layer, x)
         total = total + aux
-    return apply_norm(params.final_norm, x, cfg.norm), total
+    if final_norm:
+        x = apply_norm(params.final_norm, x, cfg.norm)
+    return x, total
 
 
 def lm_forward(params, tokens, cfg: LMConfig, plan: ParallelPlan):
     """(B, S) int -> ((B, S, V) logits in the weights' dtype, aux loss)."""
     x, aux = lm_hidden(params, tokens, cfg, plan)
     return _unembed(params, x), aux
+
+
+def _xent_chunk(params, x_c, labels_c, cfg: LMConfig):
+    """The summed cross-entropy of one sequence chunk: the final norm, the
+    unembedding and the logsumexp in f32, all chunk-local."""
+    x_c = apply_norm(params.final_norm, x_c, cfg.norm)
+    logits = _unembed(params, x_c).to(F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels_c[..., None].long())[..., 0]
+    return (lse - gold).sum()
+
+
+def lm_loss(params, batch, cfg: LMConfig, plan: ParallelPlan):
+    """batch = {tokens (B, S), labels (B, S)}; mean cross-entropy + MoE aux.
+
+    From S = 4096 the unembedding and softmax run in 2,048-token chunks,
+    each under ``torch.utils.checkpoint``, so the full (B, S, V) f32 logits
+    never exist at once (``transformer.py:475-492``)."""
+    x, aux = lm_hidden(params, batch["tokens"], cfg, plan, final_norm=False)
+    B, S, _ = x.shape
+    n_chunks = max(S // 2048, 1) if S >= 4096 else 1
+    cs = S // n_chunks
+    total = torch.zeros((), dtype=F32, device=x.device)
+    for i in range(n_chunks):
+        x_c = x[:, i * cs:(i + 1) * cs]
+        l_c = batch["labels"][:, i * cs:(i + 1) * cs]
+        total = total + checkpoint(_xent_chunk, params, x_c, l_c, cfg, use_reentrant=False)
+    return total / torch.full_like(total, B * S) + aux
 
 
 def cache_spec(cfg: LMConfig, plan: ParallelPlan, batch: int, seq: int) -> dict:

@@ -37,6 +37,10 @@ bit-equal on both devices.  Swin, DiT and the UNet (smoke configs, every
 zero-initialised leaf drawn) default to the card; card against CPU,
 float32, TF32 off, within 1e-4, DiT and the UNet launching the flash
 kernel once a layer or twice a transformer block, Swin and the CPU never.
+No kernel has a backward: each wrapper raises under autograd (and a ViT's
+backward on the card with it), and launches under ``no_grad``; one batch
+of the paper's slow tier gives the CPU's loss within 1e-5 relative and
+its grads within 1e-4 of their scale.
 """
 import numpy as np
 import pytest
@@ -1117,3 +1121,96 @@ def test_unet_bf16_launches_flash_at_each_attention(cuda_device):
         out = model(x, torch.tensor([10, 500], device="cuda"), ctx)
     assert fa_kernel.flash_attention.launches == before + _unet_attention_calls(UNET_SMOKE) == before + 14
     assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+
+
+def _wrapper_calls(device):
+    """Each kernel wrapper with small inputs whose float leaves ask for grad."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def f32(*shape):
+        return torch.randn(*shape, generator=g, device=device).requires_grad_(True)
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=device, dtype=torch.int8)
+
+    return {
+        "calib_gate": (cg_kernel.calib_gate, lambda: cg_kernel.calib_gate(f32(4, 10), -6.0, 2.0, 0.5)),
+        "flash_attention": (fa_kernel.flash_attention,
+                            lambda: fa_kernel.flash_attention(f32(1, 64, 2, 64), f32(1, 64, 2, 64), f32(1, 64, 2, 64),
+                                                              causal=False)),
+        "int8_matmul": (i8_kernel.int8_matmul,
+                        lambda: i8_kernel.int8_matmul(s8(16, 32), f32(16, 1).abs(), s8(32, 16),
+                                                      torch.rand(1, 16, generator=g, device=device))),
+        "int8_kv_decode": (kv_kernel.int8_kv_decode,
+                           lambda: kv_kernel.int8_kv_decode(f32(2, 4, 64), s8(2, 32, 2, 64),
+                                                            torch.rand(2, 32, generator=g, device=device), s8(2, 32, 2, 64),
+                                                            torch.rand(2, 32, generator=g, device=device))),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["calib_gate", "flash_attention", "int8_matmul", "int8_kv_decode"])
+def test_kernel_wrappers_raise_under_autograd(cuda_device, name):
+    """No kernel has a backward: with grad enabled and an input that
+    requires grad the wrapper raises before it launches; under ``no_grad``
+    (the same inputs) and ``inference_mode`` it launches."""
+    wrapper, call = _wrapper_calls(cuda_device)[name]
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    assert wrapper.launches == before
+    with torch.no_grad():
+        out = call()
+    with torch.inference_mode():
+        call()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert not (out[0] if isinstance(out, tuple) else out).requires_grad
+
+
+@pytest.mark.cuda
+def test_vit_backward_on_the_card_raises(cuda_device):
+    """A ViT's parameters ask for grad; its attention on the card is the
+    flash kernel, whose output has no grad_fn.  A forward under autograd
+    raises instead of leaving ``wqkv.grad`` at None after a backward."""
+    model = ViT(DEIT_SMOKE, generator=torch.Generator().manual_seed(0), device=cuda_device)
+    x = torch.randn(2, DEIT_SMOKE.img_res, DEIT_SMOKE.img_res, 3, device=cuda_device)
+    assert model.layers[0].attn.wqkv.requires_grad
+    with pytest.raises(RuntimeError, match="no backward"):
+        model(x).sum().backward()
+    assert model.layers[0].attn.wqkv.grad is None
+    with torch.inference_mode():
+        assert torch.isfinite(model(x)).all()
+
+
+@pytest.mark.cuda
+def test_slow_tier_grads_card_match_cpu(cuda_device):
+    """One batch of the paper's slow tier (``bench/stack.py``'s SLOW_CFG),
+    float32, TF32 off: the loss within 1e-5 relative and every gradient
+    leaf within 1e-4 of its scale (the larger of its largest magnitude and
+    1e-3 of the model's), cuDNN's convolutions against the CPU's."""
+    from repro_torch.bench.stack import DATA_CFG, SLOW_CFG, init_tier
+    from repro_torch.data.video import make_dataset
+    from repro_torch.models.api import build
+
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        data = make_dataset(DATA_CFG, 6, seed=0)
+        batch = {"images": torch.as_tensor(data["frames"][:64]), "labels": torch.as_tensor(data["labels"][:64]).long()}
+        loss_fn = build(SLOW_CFG).loss
+        out = {}
+        for dev in ("cpu", cuda_device):
+            model = init_tier(SLOW_CFG, 0, dev)
+            params = dict(model.named_parameters())
+            loss = loss_fn(model, {k: v.to(dev) for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, list(params.values()))
+            out[str(dev)] = (float(loss.detach()), {k: g.cpu() for k, g in zip(params, grads)})
+        (lc, gc), (lg, gg) = out["cpu"], out[str(cuda_device)]
+        assert abs(lg - lc) <= 1e-5 * abs(lc)
+        floor = 1e-3 * max(float(g.abs().max()) for g in gc.values())
+        for k in gc:
+            scale = max(float(gc[k].abs().max()), floor)
+            assert float((gg[k] - gc[k]).abs().max()) <= 1e-4 * scale, k
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
