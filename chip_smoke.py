@@ -93,6 +93,15 @@ without them it exits non-zero before printing any result.  Phases:
      deterministic); (c) ``lm_loss`` at StableLM-12B FULL's widths cut to
      2 layers, bf16, 2 x 4096 tokens in two micro-batches, 3 steps.  No
      kernel runs under autograd: each wrapper raises there.
+     3k. path 11, the scale scaffolding: (a) the analytic dry run of all 40
+     (arch x shape) pairs on the (16, 16) and (2, 16, 16) production
+     meshes, counted on the meta device (72 records ok, the 8 ``long_500k``
+     ones of the full-attention LMs skipped); (b) card mode on a (1, 1)
+     ``DeviceMesh``: DeiT-B, ViT-S/16, Swin-B and ResNet-50 ``serve_b128``,
+     ResNet-50 ``cls_224`` (a train step at batch 256, float32 masters) and
+     DiT-B/2 ``gen_fast``, each FULL step timed at its shape, its count on
+     the card equal to its meta count (12 flash-attention launches a DeiT-B,
+     ViT-S/16 or DiT-B/2 step, none of any kernel in the others).
      Each path's kernel launch counts are set to 0 just before its run and
      read just after; then the same stream (paths 4 and 8: 8 more decode
      steps; path 5: the split fleet; path 6: the telemetry run, one cbo
@@ -254,6 +263,12 @@ CPU_GRAD_TOL = 1e-4
 CPU_UPDATE_ATOL = 1e-6
 CPU_MOMENT_RTOL = 1e-5
 LM_CPU_SEQ = 64
+# path 11: the dry run's card cells, (arch, shape, flash-attention launches a step)
+SCALE_CARD_CELLS = (("deit-b", "serve_b128", 12), ("vit-s16", "serve_b128", 12), ("swin-b", "serve_b128", 0),
+                    ("resnet-50", "serve_b128", 0), ("resnet-50", "cls_224", 0), ("dit-b2", "gen_fast", 12))
+SCALE_REPS = 5  # timed steps a card cell, after one counted step
+SCALE_WORKERS = 4  # processes for the analytic pass
+SCALE_BUDGET_S = 90.0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -551,9 +566,12 @@ def calib_gate_cases(torch):
 def calib_bound(B, V, elem_bytes):
     """Least time (ms) for the card, and what bounds it: the logits read
     once, calib (f32) and gate (bool) written once, against 4 float32
-    operations a logit (compare, subtract, exp, add)."""
-    n_bytes = B * V * elem_bytes + B * 4 + B
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, B * V * 4 / FP32_OPS_PER_S
+    operations a logit (compare, subtract, exp, add): ``kernels/cost.py``'s
+    formula, which the dispatcher reports to the dry run's counter."""
+    from repro_torch.kernels.cost import calib_gate_cost
+
+    n_ops, n_bytes = calib_gate_cost(B, V, elem_bytes)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -602,9 +620,11 @@ def calib_gate_phase(torch, cg_kernel, calib_gate_ref):
 def int8_bound(M, K, N):
     """Least time (ms) for the card, and what bounds it: x_q, w_q and both
     scales read once and the float32 output written once, against 2·M·N·K
-    int8 operations at the dense int8 tensor-core peak."""
-    n_bytes = M * K + K * N + 4 * M + 4 * N + M * N * 4
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 2 * M * N * K / INT8_OPS_PER_S
+    int8 operations at the dense int8 tensor-core peak (``kernels/cost.py``)."""
+    from repro_torch.kernels.cost import int8_matmul_cost
+
+    n_ops, n_bytes = int8_matmul_cost(M, K, N, 4)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -665,15 +685,15 @@ def attention_bound(B, Sq, Sk, H, D, causal, dtype, same_qkv=False):
     """Least time (ms) for the card, and what bounds it: q, k, v read once
     (one tensor when the caller passes q as k and v, as the f(batch) sweep
     does) and o written once, against 4·D operations per (query, visible
-    key) pair per head (q·k and p·v), at the bf16 tensor-core peak or, in
-    f32, three times as many at the TF32 peak (the kernel's 3xTF32; the
-    f32 FMA peak would give the bound of a kernel on the CUDA cores)."""
+    key) pair per head (q·k and p·v; ``kernels/cost.py``), at the bf16
+    tensor-core peak or, in f32, three times as many at the TF32 peak (the
+    kernel's 3xTF32; the f32 FMA peak would give the bound of a kernel on
+    the CUDA cores)."""
     import torch
 
-    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
-    n_ops = 4 * B * H * D * pairs
-    n_elems = 2 * B * Sq * H * D + (0 if same_qkv else 2 * B * Sk * H * D)
-    n_bytes = n_elems * (4 if dtype == torch.float32 else 2)
+    from repro_torch.kernels.cost import attention_cost
+
+    n_ops, n_bytes = attention_cost(B, Sq, Sk, H, D, causal, 4 if dtype == torch.float32 else 2, same_qkv)
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = 3 * n_ops / TF32_OPS_PER_S if dtype == torch.float32 else n_ops / BF16_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -716,7 +736,10 @@ def flash_phase(torch, flash_attention, attention_ref):
               ("DiT path", 16, 1024, 1024, 12, 64, False, bf16, False),
               ("UNet s0 self", 1, 16384, 16384, 5, 64, False, bf16, False),
               ("UNet s0 cross", 4, 16384, 77, 5, 64, False, bf16, False),
-              ("UNet s2 self", 4, 1024, 1024, 20, 64, False, bf16, False)]
+              ("UNet s2 self", 4, 1024, 1024, 20, 64, False, bf16, False),
+              # path 11: DeiT-B and ViT-S/16 at serve_b128 (odd S, six heads)
+              ("path 11 DeiT-B", 128, 198, 198, 12, 64, False, bf16, False),
+              ("path 11 ViT-S/16", 128, 197, 197, 6, 64, False, bf16, False)]
     # non-causal over 16,384 keys each output averages so many values that
     # q cut to 5 mantissa bits moves it by less than the bf16 limit (3.9e-3
     # against 5e-3 on an H100): there the stand-in fault's error is printed,
@@ -963,10 +986,11 @@ def decode_bound(B, S, KH, G, D, q_bytes):
     """Least time (ms) for the card, and what bounds it: the int8 K and V
     caches, both scales and q read once and the output written once, against
     4·B·H·S·D operations (q·k and p·v) at the f32 peak outside the tensor
-    cores."""
-    n_bytes = 2 * B * S * KH * D + 2 * B * S * 4 + 2 * B * KH * G * D * q_bytes
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = 4 * B * KH * G * S * D / FP32_OPS_PER_S
+    cores (``kernels/cost.py``)."""
+    from repro_torch.kernels.cost import decode_cost
+
+    n_ops, n_bytes = decode_cost(B, S, KH, G, D, q_bytes)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -2857,6 +2881,83 @@ def lm_train_phase(counted):
     return launches
 
 
+def scale_phase(counted):
+    """Path 11: the scale scaffolding (``launch/``).  (a) The analytic dry
+    run of all 40 (arch x shape) pairs on the two production meshes, 80
+    records counted on the meta device in ``SCALE_WORKERS`` processes:
+    exactly the 8 ``long_500k`` records of the four full-attention LMs
+    skipped, every other one ``ok``.  (b) Card mode on a (1, 1)
+    ``DeviceMesh`` over this card (NCCL, one process): each of
+    ``SCALE_CARD_CELLS`` runs its FULL step at the cell's own shape on
+    weights drawn from a seed, inputs placed through ``host_shard``: ms a
+    step (events, the median of ``SCALE_REPS``), TFLOP/s, the fraction of
+    the roofline bound, peak memory.  Checks: the card's count equal to the
+    meta count, the peak at or above the state estimate, finite outputs,
+    and exact launch counts: the flash kernel's a step for each cell, 0 of
+    the other three kernels."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh, process_group
+
+    t_path = time.perf_counter()
+    t0 = time.perf_counter()
+    recs = dryrun.run_all(("single", "multi"), workers=SCALE_WORKERS)
+    t_analytic = time.perf_counter() - t0
+    check(len(recs) == 80, f"path 11 (a): {len(recs)} records")
+    errors = [(r["arch"], r["shape"], r["mesh"], r.get("error")) for r in recs if r["status"] == "error"]
+    check(not errors, f"path 11 (a): errors {errors[:3]}")
+    skipped = sorted((r["arch"], r["shape"], r["mesh"]) for r in recs if r["status"] == "skipped")
+    want = sorted((a, "long_500k", m) for a in ("qwen1.5-32b", "stablelm-12b", "deepseek-v2-lite-16b", "arctic-480b")
+                  for m in ("single", "multi"))
+    check(skipped == want, f"path 11 (a): skipped {skipped}")
+    ok = [r for r in recs if r["status"] == "ok"]
+    check(len(ok) == 72, f"path 11 (a): {len(ok)} ok")
+    print(f"  (a) analytic dry run, 80 records ({len(ok)} ok, {len(skipped)} skipped) on the (16, 16) and (2, 16, 16)"
+          f" meshes, counted on meta in {SCALE_WORKERS} processes: {t_analytic:.2f} s")
+    print("      arch | shape | mesh | FLOPs/chip | state bytes/chip (lower bound) | dominant | bound ms")
+    for r in ok:
+        print(f"      {r['arch']} | {r['shape']} | {r['mesh']} | {r['flops_per_chip']:.4e} |"
+              f" {r['memory']['total_bytes_per_chip']:.4e} | {r['dominant']} | {r['bound_s'] * 1e3:.4f}")
+
+    _free_card()
+    total = {name: 0 for name in counted}
+    rows = []
+    with process_group("cuda"):
+        mesh = make_local_mesh(device="cuda")
+        check(tuple(mesh.mesh.shape) == (1, 1) and mesh.device_type == "cuda", f"path 11 (b): mesh {mesh}")
+        for i, (arch, shape, flash_per_step) in enumerate(SCALE_CARD_CELLS):
+            for fn in counted.values():
+                fn.launches = 0
+            rec = dryrun.run_card_cell(arch, shape, mesh, seed=100 + i, reps=SCALE_REPS)
+            launches = {name: fn.launches for name, fn in counted.items()}
+            label = f"path 11 (b) {arch} {shape}"
+            check(rec["status"] == "ok", f"{label}: {rec}")
+            steps = 1 + SCALE_REPS
+            want = {name: (flash_per_step * steps if name == "flash_attention" else 0) for name in counted}
+            check(launches == want, f"{label}: launches {launches}, want {want}")
+            check(rec["flops_card"] == rec["flops_meta"], f"{label}: card count {rec['flops_card']} != meta"
+                  f" {rec['flops_meta']}")
+            check(rec["peak_bytes"] >= rec["state_bytes"], f"{label}: peak {rec['peak_bytes']} < state"
+                  f" {rec['state_bytes']}")
+            check(rec["finite"], f"{label}: output not finite")
+            for name in counted:
+                total[name] += launches[name]
+            rows.append(rec)
+            print(f"  (b) {arch} {shape} ({rec['kind']}, {rec['n_params']} parameters, {rec['param_dtype']}):"
+                  f" {rec['ms']:.3f} ms a step (median of {SCALE_REPS}: {' '.join(f'{t:.3f}' for t in rec['times_ms'])}),"
+                  f" {rec['tflops']:.1f} TFLOP/s, bound {rec['bound_ms']:.3f} ms ({rec['dominant']}),"
+                  f" fraction of bound {rec['fraction_of_bound']:.4f}, peak {rec['peak_bytes'] / 1e9:.3f} GB"
+                  f" (state {rec['state_bytes'] / 1e9:.3f} GB); FLOPs card {rec['flops_card']:.6e} = meta"
+                  f" {rec['flops_meta']:.6e}, bytes card {rec['bytes_card']:.6e} meta {rec['bytes_meta']:.6e};"
+                  f" launches {launches}; inputs {rec['placements']}")
+            _free_card()
+    seconds = time.perf_counter() - t_path
+    print(f"  path 11: {seconds:.2f} s (budget {SCALE_BUDGET_S:.0f} s); launches {total}")
+    check(seconds <= SCALE_BUDGET_S, f"path 11 took {seconds:.1f} s > {SCALE_BUDGET_S} s")
+    return total
+
+
 def train_card_vs_cpu() -> None:
     """Phase 4i, card against CPU, float32, TF32 off: one batch of 128 of the
     slow tier's training data, loss and every grad; one ``apply_updates``
@@ -3088,6 +3189,10 @@ def main() -> int:
         train_launches = {name: train_launches[name] + got[name] for name in counted}
     phase_done("3j (path 10)")
 
+    # ---- 3k. path 11: the dry run, analytic and on the card ---------------- #
+    scale_launches = scale_phase(counted)
+    phase_done("3k (path 11)")
+
     # ---- 4. card against CPU ---------------------------------------------- #
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3150,7 +3255,8 @@ def main() -> int:
                     replaces="src/repro/kernels/fused_calib_gate/kernel.py:48",
                     launches=(launches["calib_gate"] + eval_launches["calib_gate"] + tel_launches["calib_gate"]
                               + eng_launches["calib_gate"] + zoo_launches["calib_gate"]
-                              + diff_launches["calib_gate"] + train_launches["calib_gate"]),
+                              + diff_launches["calib_gate"] + train_launches["calib_gate"]
+                              + scale_launches["calib_gate"]),
                     max_abs_err=cg_err,
                     ms=cg_row["ms"], plain_ms=cg_row["plain_ms"],
                     bound_ms=cg_row["bound_ms"], bound_by=cg_row["bound_by"],
@@ -3161,7 +3267,7 @@ def main() -> int:
                     launches=(launches["flash_attention"] + eval_launches["flash_attention"]
                               + tel_launches["flash_attention"] + eng_launches["flash_attention"]
                               + zoo_launches["flash_attention"] + diff_launches["flash_attention"]
-                              + train_launches["flash_attention"]),
+                              + train_launches["flash_attention"] + scale_launches["flash_attention"]),
                     max_abs_err=fa_err,
                     ms=fa_row["ms"], plain_ms=fa_row["plain_ms"],
                     bound_ms=fa_row["bound_ms"], bound_by=fa_row["bound_by"],
@@ -3171,7 +3277,8 @@ def main() -> int:
                     replaces="src/repro/kernels/int8_matmul/kernel.py:43",
                     launches=(launches["int8_matmul"] + eval_launches["int8_matmul"] + tel_launches["int8_matmul"]
                               + eng_launches["int8_matmul"] + zoo_launches["int8_matmul"]
-                              + diff_launches["int8_matmul"] + train_launches["int8_matmul"]),
+                              + diff_launches["int8_matmul"] + train_launches["int8_matmul"]
+                              + scale_launches["int8_matmul"]),
                     max_abs_err=i8_err,
                     ms=i8_row["ms"], plain_ms=i8_row["plain_ms"],
                     bound_ms=i8_row["bound_ms"], bound_by=i8_row["bound_by"],
@@ -3182,7 +3289,7 @@ def main() -> int:
                     launches=lm_launches["int8_kv_decode"] + eval_launches["int8_kv_decode"]
                     + tel_launches["int8_kv_decode"] + eng_launches["int8_kv_decode"]
                     + zoo_launches["int8_kv_decode"] + diff_launches["int8_kv_decode"]
-                    + train_launches["int8_kv_decode"], max_abs_err=kv_err,
+                    + train_launches["int8_kv_decode"] + scale_launches["int8_kv_decode"], max_abs_err=kv_err,
                     ms=kv_row["ms"], plain_ms=kv_row["plain_ms"],
                     bound_ms=kv_row["bound_ms"], bound_by=kv_row["bound_by"],
                     library_ms=kv_row["library_ms"])]

@@ -4,7 +4,7 @@
 35L d_model=7168 56H (GQA kv=8) d_ff=4864 vocab=32000,
 MoE 128 experts top-2 with a parallel dense residual FFN per layer.
 """
-from repro_torch.configs.base import ArchSpec, LMConfig, MoEConfig, register
+from repro_torch.configs.base import ArchSpec, LMConfig, MoEConfig, lm_shapes, register
 
 FULL = LMConfig(
     name="arctic-480b",
@@ -45,6 +45,7 @@ def spec() -> ArchSpec:
     return ArchSpec(
         arch_id="arctic-480b",
         family="moe-lm",
+        shapes=lm_shapes(full_attention=True),
         full=FULL,
         smoke=SMOKE,
         source="hf:Snowflake/snowflake-arctic-base",

@@ -6,14 +6,87 @@ the UNet) and the language models, the reference's whole zoo.
 included, so that configs read the same; ``models/transformer.py`` runs
 all of them: dense GQA, MLA and MoE.
 
-The registry covers the configs the port has.  An ``ArchSpec`` carries no
-shape set: the reference's per-family shapes feed its launch scaffolding,
-which comes with ROADMAP A.13.
+Every arch provides ``full`` (the published configuration), ``smoke`` (a
+reduced same-family one for CPU tests) and ``shapes``, its family's set
+of (shape name -> ``ShapeSpec``) cells.  A shape's kind picks the step
+that ``launch/cells.py`` builds:
+
+  train    -> train_step(state, batch)
+  prefill  -> prefill_step(params, tokens)          (LM)
+  decode   -> decode_step(params, kv_cache, token)  (LM; one new token)
+  gen      -> denoise_step(params, x_t, t, cond)    (diffusion; 1 of ``steps``)
+  serve    -> serve_step(params, images)            (vision forward)
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Optional
+
+
+# --------------------------------------------------------------------------- #
+# Shape specs
+# --------------------------------------------------------------------------- #
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One (input-shape) cell for an architecture."""
+
+    name: str
+    kind: str  # train | prefill | decode | gen | serve
+    # LM fields
+    seq_len: int = 0
+    global_batch: int = 0
+    # vision / diffusion fields
+    img_res: int = 0
+    batch: int = 0
+    steps: int = 0  # diffusion sampler steps (the loop is the host's; one step is built)
+    skip: bool = False
+    skip_reason: str = ""
+
+
+def lm_shapes(*, full_attention: bool) -> dict[str, ShapeSpec]:
+    """The LM family's 4 shapes; ``long_500k`` is skipped for a pure
+    full-attention arch, with the reference's reason."""
+    return {
+        "train_4k": ShapeSpec("train_4k", "train", seq_len=4096, global_batch=256),
+        "prefill_32k": ShapeSpec("prefill_32k", "prefill", seq_len=32768, global_batch=32),
+        "decode_32k": ShapeSpec("decode_32k", "decode", seq_len=32768, global_batch=128),
+        "long_500k": ShapeSpec(
+            "long_500k",
+            "decode",
+            seq_len=524288,
+            global_batch=1,
+            skip=full_attention,
+            skip_reason=(
+                "pure full-attention arch; assignment mandates sub-quadratic "
+                "attention for long_500k (see DESIGN.md §Arch-applicability)"
+            ),
+        ),
+    }
+
+
+def diffusion_shapes() -> dict[str, ShapeSpec]:
+    return {
+        "train_256": ShapeSpec("train_256", "train", img_res=256, batch=256, steps=1000),
+        "gen_1024": ShapeSpec("gen_1024", "gen", img_res=1024, batch=4, steps=50),
+        "gen_fast": ShapeSpec("gen_fast", "gen", img_res=512, batch=16, steps=4),
+        "train_1024": ShapeSpec("train_1024", "train", img_res=1024, batch=32, steps=1000),
+    }
+
+
+def vision_shapes() -> dict[str, ShapeSpec]:
+    return {
+        "cls_224": ShapeSpec("cls_224", "train", img_res=224, batch=256),
+        "cls_384": ShapeSpec("cls_384", "train", img_res=384, batch=64),
+        "serve_b1": ShapeSpec("serve_b1", "serve", img_res=224, batch=1),
+        "serve_b128": ShapeSpec("serve_b128", "serve", img_res=224, batch=128),
+    }
+
+
+# --------------------------------------------------------------------------- #
+# Model configs
+# --------------------------------------------------------------------------- #
 
 
 @dataclass(frozen=True)
@@ -40,6 +113,8 @@ class ResNetConfig:
         total += cin * self.n_classes
         return int(total)
 
+    active_param_count = param_count
+
 
 @dataclass(frozen=True)
 class ViTConfig:
@@ -64,6 +139,8 @@ class ViTConfig:
         pos = n_tok * d
         head = d * self.n_classes * (2 if self.distill_token else 1)
         return per_layer * self.n_layers + stem + pos + head + 2 * d
+
+    active_param_count = param_count
 
 
 @dataclass(frozen=True)
@@ -91,6 +168,8 @@ class SwinConfig:
                 total += 4 * dim * self.dims[i + 1]  # patch merging
         total += self.dims[-1] * self.n_classes
         return int(total)
+
+    active_param_count = param_count
 
 
 @dataclass(frozen=True)
@@ -285,6 +364,7 @@ class ArchSpec:
     family: str  # lm | moe-lm | diffusion | vision
     full: object
     smoke: object
+    shapes: dict[str, ShapeSpec]
     source: str  # public citation
     notes: str = ""
 

@@ -5,7 +5,7 @@
 (qk_nope=128, qk_rope=64, v_head=128), MoE: 2 shared + 64 routed, top-6,
 first layer dense (d_ff=10944) per the HF config.
 """
-from repro_torch.configs.base import ArchSpec, LMConfig, MoEConfig, register
+from repro_torch.configs.base import ArchSpec, LMConfig, MoEConfig, lm_shapes, register
 
 FULL = LMConfig(
     name="deepseek-v2-lite-16b",
@@ -58,6 +58,7 @@ def spec() -> ArchSpec:
     return ArchSpec(
         arch_id="deepseek-v2-lite-16b",
         family="moe-lm",
+        shapes=lm_shapes(full_attention=True),
         full=FULL,
         smoke=SMOKE,
         source="arXiv:2405.04434; hf:deepseek-ai/DeepSeek-V2-Lite",

@@ -2,7 +2,7 @@
 
 img_res=224 patch=16, 12L d_model=768 12H d_ff=3072, +1 distill token.
 """
-from repro_torch.configs.base import ArchSpec, ViTConfig, register
+from repro_torch.configs.base import ArchSpec, ViTConfig, register, vision_shapes
 
 FULL = ViTConfig(
     name="deit-b",
@@ -33,6 +33,7 @@ def spec() -> ArchSpec:
     return ArchSpec(
         arch_id="deit-b",
         family="vision",
+        shapes=vision_shapes(),
         full=FULL,
         smoke=SMOKE,
         source="arXiv:2012.12877",

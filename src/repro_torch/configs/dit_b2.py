@@ -3,7 +3,7 @@
 img_res=256 (latent 32 via f=8 VAE), patch=2, 12L d_model=768 12H,
 adaLN-Zero conditioning, class-conditional (1000), learn_sigma.
 """
-from repro_torch.configs.base import ArchSpec, DiTConfig, register
+from repro_torch.configs.base import ArchSpec, DiTConfig, diffusion_shapes, register
 
 FULL = DiTConfig(
     name="dit-b2",
@@ -30,6 +30,7 @@ def spec() -> ArchSpec:
     return ArchSpec(
         arch_id="dit-b2",
         family="diffusion",
+        shapes=diffusion_shapes(),
         full=FULL,
         smoke=SMOKE,
         source="arXiv:2212.09748",

@@ -3,7 +3,7 @@
 [hf:Qwen/Qwen1.5-32B (family config per assignment)]
 64L d_model=5120 40H (kv=40, i.e. MHA) d_ff=27392 vocab=152064, QKV bias.
 """
-from repro_torch.configs.base import ArchSpec, LMConfig, register
+from repro_torch.configs.base import ArchSpec, LMConfig, lm_shapes, register
 
 FULL = LMConfig(
     name="qwen1.5-32b",
@@ -38,6 +38,7 @@ def spec() -> ArchSpec:
     return ArchSpec(
         arch_id="qwen1.5-32b",
         family="lm",
+        shapes=lm_shapes(full_attention=True),
         full=FULL,
         smoke=SMOKE,
         source="hf:Qwen/Qwen1.5-0.5B (scaled per assignment)",

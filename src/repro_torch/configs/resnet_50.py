@@ -2,7 +2,7 @@
 
 img_res=224, depths 3-4-6-3, width=64, bottleneck blocks.
 """
-from repro_torch.configs.base import ArchSpec, ResNetConfig, register
+from repro_torch.configs.base import ArchSpec, ResNetConfig, register, vision_shapes
 
 FULL = ResNetConfig(
     name="resnet-50",
@@ -25,6 +25,7 @@ def spec() -> ArchSpec:
     return ArchSpec(
         arch_id="resnet-50",
         family="vision",
+        shapes=vision_shapes(),
         full=FULL,
         smoke=SMOKE,
         source="arXiv:1512.03385",

@@ -4,7 +4,7 @@
 40L d_model=5120 32H (GQA kv=8) d_ff=13824 vocab=100352; partial rotary
 (rope_pct=0.25 per the StableLM-2 family).
 """
-from repro_torch.configs.base import ArchSpec, LMConfig, register
+from repro_torch.configs.base import ArchSpec, LMConfig, lm_shapes, register
 
 FULL = LMConfig(
     name="stablelm-12b",
@@ -40,6 +40,7 @@ def spec() -> ArchSpec:
     return ArchSpec(
         arch_id="stablelm-12b",
         family="lm",
+        shapes=lm_shapes(full_attention=True),
         full=FULL,
         smoke=SMOKE,
         source="hf:stabilityai/stablelm-2-1_6b (scaled per assignment)",

@@ -4,7 +4,7 @@ img_res=224 patch=4 window=7, depths 2-2-18-2, dims 128-256-512-1024.
 The model is ``models/swin.py``; the split planner's catalog reads this
 configuration too.
 """
-from repro_torch.configs.base import ArchSpec, SwinConfig, register
+from repro_torch.configs.base import ArchSpec, SwinConfig, register, vision_shapes
 
 FULL = SwinConfig(
     name="swin-b",
@@ -31,6 +31,7 @@ def spec() -> ArchSpec:
     return ArchSpec(
         arch_id="swin-b",
         family="vision",
+        shapes=vision_shapes(),
         full=FULL,
         smoke=SMOKE,
         source="arXiv:2103.14030",

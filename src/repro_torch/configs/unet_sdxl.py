@@ -3,7 +3,7 @@
 img_res=1024 (latent 128), ch=320, ch_mult=1-2-4, 2 res blocks/stage,
 transformer_depth=1-2-10, cross-attn ctx_dim=2048.
 """
-from repro_torch.configs.base import ArchSpec, UNetConfig, register
+from repro_torch.configs.base import ArchSpec, UNetConfig, diffusion_shapes, register
 
 FULL = UNetConfig(
     name="unet-sdxl",
@@ -34,6 +34,7 @@ def spec() -> ArchSpec:
     return ArchSpec(
         arch_id="unet-sdxl",
         family="diffusion",
+        shapes=diffusion_shapes(),
         full=FULL,
         smoke=SMOKE,
         source="arXiv:2307.01952",

@@ -2,7 +2,7 @@
 
 img_res=224 patch=16, 12L d_model=384 6H d_ff=1536.
 """
-from repro_torch.configs.base import ArchSpec, ViTConfig, register
+from repro_torch.configs.base import ArchSpec, ViTConfig, register, vision_shapes
 
 FULL = ViTConfig(
     name="vit-s16",
@@ -31,6 +31,7 @@ def spec() -> ArchSpec:
     return ArchSpec(
         arch_id="vit-s16",
         family="vision",
+        shapes=vision_shapes(),
         full=FULL,
         smoke=SMOKE,
         source="arXiv:2010.11929",

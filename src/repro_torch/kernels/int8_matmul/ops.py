@@ -4,12 +4,17 @@
 ``use_kernel="auto"`` sends a CUDA tensor to the hand-written kernel
 (``kernel.int8_matmul``), which launches or raises, and a CPU tensor to
 the plain version (``ref.int8_matmul_ref``); ``use_kernel="ref"`` forces
-the plain version, as in the reference.  There is no other fallback.
+the plain version, as in the reference.  A meta tensor gets an empty
+output of the kernel's shape and dtype, for counting a step without
+running it.  There is no other fallback.  On ``cuda`` and ``meta`` the
+kernel's call reports ``cost.int8_matmul_cost`` to the open cost
+counters.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.cost import counted, int8_matmul_cost
 from repro_torch.kernels.int8_matmul import ref
 from repro_torch.kernels.int8_matmul.kernel import int8_matmul
 
@@ -17,11 +22,15 @@ from repro_torch.kernels.int8_matmul.kernel import int8_matmul
 def _matmul(xq, xs, wq, ws, out_dtype, use_kernel: str) -> torch.Tensor:
     if use_kernel not in ("auto", "ref"):
         raise ValueError(f"use_kernel must be 'auto' or 'ref', got {use_kernel!r}")
-    if use_kernel == "auto" and xq.is_cuda:
+    if use_kernel == "ref" or xq.device.type == "cpu":
+        return ref.int8_matmul_ref(xq, xs, wq, ws, out_dtype)
+    if not (xq.is_cuda or xq.is_meta):
+        raise ValueError(f"int8 matmul runs on cuda, cpu or meta, got {xq.device}")
+    (M, K), N = xq.shape, wq.shape[1]
+    with counted("int8_matmul", int8_matmul_cost, M, K, N, out_dtype.itemsize):
+        if xq.is_meta:
+            return xq.new_empty((M, N), dtype=out_dtype)
         return int8_matmul(*(t.contiguous() for t in (xq, xs, wq, ws)), out_dtype=out_dtype)
-    if use_kernel == "auto" and xq.device.type != "cpu":
-        raise ValueError(f"int8 matmul runs on cuda or cpu, got {xq.device}")
-    return ref.int8_matmul_ref(xq, xs, wq, ws, out_dtype)
 
 
 def quantized_matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=torch.float32,

@@ -23,29 +23,35 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import DiTConfig
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.models.layers import F32, Leaf, ParamTree, apply_mlp, mlp_shapes, sinusoidal_embedding
+from repro_torch.models.layers import (F32, HEADS_OUT, LINEAR, QKV, Leaf, ParamTree, apply_mlp, leaf, mlp_shapes,
+                                      sinusoidal_embedding)
 from repro_torch.models.vit import patchify
 
 T_DIM = 256  # the timestep embedding's width
 
 
 def dit_shapes(cfg: DiTConfig) -> dict[str, Leaf]:
-    """``dit_param_spec`` in the port's layout, with the reference layout's
-    fan-ins."""
+    """``dit_param_spec`` in the port's layout, with the reference
+    layout's dims, logical axes and fan-ins."""
     d, H = cfg.d_model, cfg.n_heads
     pin = cfg.patch**2 * cfg.in_channels
     pout = cfg.patch**2 * cfg.in_channels * (2 if cfg.learn_sigma else 1)
-    out = {"x_embed.w": Leaf((d, pin), pin), "x_embed.b": Leaf((d,), None),
-           "t_embed.w1": Leaf((d, T_DIM), T_DIM), "t_embed.b1": Leaf((d,), None),
-           "t_embed.w2": Leaf((d, d), d), "t_embed.b2": Leaf((d,), None),
-           "y_embed": Leaf((cfg.n_classes + 1, d), 1, scale=0.02)}
-    layer = {"attn.wqkv": Leaf((3 * d, d), 3 * d * H), "attn.wo": Leaf((d, d), d),
+    out = {"x_embed.w": leaf((pin, "conv_in"), (d, "embed"), order=LINEAR), "x_embed.b": leaf((d, "embed"), const=True),
+           "t_embed.w1": leaf((T_DIM, "conv_in"), (d, "embed"), order=LINEAR),
+           "t_embed.b1": leaf((d, "embed"), const=True),
+           "t_embed.w2": leaf((d, "embed"), (d, "mlp"), order=LINEAR), "t_embed.b2": leaf((d, "mlp"), const=True),
+           "y_embed": leaf((cfg.n_classes + 1, "vocab"), (d, "embed"), fan_in=1, scale=0.02)}
+    layer = {"attn.wqkv": leaf((3, "stack"), (d, "embed"), (H, "q_heads"), (d // H, "head_dim"), order=QKV),
+             "attn.wo": leaf((H, "q_heads"), (d // H, "head_dim"), (d, "embed"), order=HEADS_OUT),
              **{f"mlp.{k}": v for k, v in mlp_shapes(d, cfg.d_ff, "gelu").items()},
-             "adaln.w": Leaf((6 * d, d), None), "adaln.b": Leaf((6 * d,), None)}
+             "adaln.w": leaf((d, "embed"), (6 * d, "mlp"), order=LINEAR, const=True),
+             "adaln.b": leaf((6 * d, "mlp"), const=True)}
     for i in range(cfg.n_layers):
         out.update({f"layers.{i}.{k}": v for k, v in layer.items()})
-    out.update({"final.adaln.w": Leaf((2 * d, d), None), "final.adaln.b": Leaf((2 * d,), None),
-                "final.w": Leaf((pout, d), None), "final.b": Leaf((pout,), None)})
+    out.update({"final.adaln.w": leaf((d, "embed"), (2 * d, "mlp"), order=LINEAR, const=True),
+                "final.adaln.b": leaf((2 * d, "mlp"), const=True),
+                "final.w": leaf((d, "embed"), (pout, "conv_out"), order=LINEAR, const=True),
+                "final.b": leaf((pout, "conv_out"), const=True)})
     return out
 
 

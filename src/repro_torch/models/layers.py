@@ -121,30 +121,67 @@ def attention_blockwise(q, k, v, *, causal: bool, chunk: int = 1024) -> torch.Te
     return out.transpose(1, 2).to(q.dtype)
 
 
+Dim = tuple  # (size, logical axis or None): one dim of the reference's layout of a leaf
+
+# How the reference's dims make the port's: one tuple per port dim, the
+# reference dims it merges, outermost first (``models/convert.py`` moves
+# the values so).
+LINEAR = ((1,), (0,))  # (in, out) -> F.linear's (out, in)
+HEADS_IN = ((1, 2), (0,))  # (in, H, Dh) -> (H·Dh, in)
+HEADS_OUT = ((2,), (0, 1))  # (H, Dh, out) -> (out, H·Dh)
+QKV = ((0, 2, 3), (1,))  # (3, d, H, Dh) -> (3·H·Dh, d)
+HWIO = ((3,), (2,), (0,), (1,))  # a conv's HWIO -> OIHW
+
+
+def flat(n: int) -> tuple:
+    """n reference dims merged into the port's one: (H, Dh) -> (H·Dh,)."""
+    return (tuple(range(n)),)
+
+
 class Leaf(NamedTuple):
     """One parameter: its shape in the port's layout, the fan-in of the
     reference layout's init (None for a constant: norm scales 1, biases 0),
     whether it is float32 whatever the model's dtype (norms, the MoE
-    router), and the init's scale (``ts(..., scale=)``: the draw's std is
-    ``scale / sqrt(fan_in)``)."""
+    router), the init's scale (``ts(..., scale=)``: the draw's std is
+    ``scale / sqrt(fan_in)``), the reference's dims with their logical
+    axes (``ref``; a stacked layer's without its leading ``layers`` dim)
+    and which of them each port dim merges (``order``)."""
 
     shape: tuple[int, ...]
     fan_in: int | None
     f32: bool = False
     scale: float = 1.0
+    ref: tuple[Dim, ...] = ()
+    order: tuple[tuple[int, ...], ...] = ()
 
 
-def norm_shapes(d: int, kind: str) -> dict[str, Leaf]:
-    """``layers.py::norm_spec``: a float32 scale, and a bias for LayerNorm."""
+def leaf(*ref: Dim, order: tuple | None = None, const: bool = False, fan_in: int = 0, f32: bool = False,
+         scale: float = 1.0) -> Leaf:
+    """A leaf given as the reference's ``ts(*ref)``: its (size, logical
+    axis) dims in the reference's layout, and ``order`` (default: the
+    same dims) to the port's layout.  The fan-in is the reference's
+    default, the product of all dims but the last, unless ``fan_in`` is
+    given; ``const`` marks a leaf the reference sets to 0 or 1."""
+    sizes = [n for n, _ in ref]
+    order = order or tuple((i,) for i in range(len(ref)))
+    shape = tuple(math.prod(sizes[i] for i in g) for g in order)
+    fan = None if const else (fan_in or (math.prod(sizes[:-1]) if len(sizes) > 1 else sizes[0]))
+    return Leaf(shape, fan, f32, scale, tuple(ref), order)
+
+
+def norm_shapes(d: int, kind: str, axis: str = "embed") -> dict[str, Leaf]:
+    """``layers.py::norm_spec``: a float32 scale, and a bias for LayerNorm
+    (``axis`` is ``conv_out`` for the conv nets' affine, as there)."""
     names = ("scale",) if kind == "rmsnorm" else ("scale", "bias")
-    return {k: Leaf((d,), None, True) for k in names}
+    return {k: leaf((d, axis), const=True, f32=True) for k in names}
 
 
 def mlp_shapes(d: int, d_ff: int, act: str) -> dict[str, Leaf]:
     """``layers.py::mlp_spec`` in ``F.linear``'s layout."""
+    up, down = leaf((d, "embed"), (d_ff, "mlp"), order=LINEAR), leaf((d_ff, "mlp"), (d, "embed"), order=LINEAR)
     if act == "swiglu":
-        return {"wg": Leaf((d_ff, d), d), "wu": Leaf((d_ff, d), d), "wd": Leaf((d, d_ff), d_ff)}
-    return {"wi": Leaf((d_ff, d), d), "wo": Leaf((d, d_ff), d_ff)}
+        return {"wg": up, "wu": up, "wd": down}
+    return {"wi": up, "wo": down}
 
 
 def apply_mlp(p, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
@@ -246,6 +283,14 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int, max_period: float = 10_000.0
     freqs = torch.exp(-math.log(max_period) * torch.arange(half, dtype=F32, device=t.device) / half)
     ang = t.to(F32)[:, None] * freqs[None, :]
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+
+
+def pad_heads(n_heads: int, model_axis: int) -> int:
+    """The head count rounded up to a multiple of the model axis
+    (``layers.py::pad_heads``)."""
+    if model_axis <= 1 or n_heads % model_axis == 0:
+        return n_heads
+    return -(-n_heads // model_axis) * model_axis
 
 
 def _same_pad(n: int, k: int, stride: int) -> tuple[int, int]:

@@ -24,19 +24,21 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.models.layers import F32, Leaf, apply_mlp, mlp_shapes
+from repro_torch.models.layers import F32, Leaf, apply_mlp, leaf, mlp_shapes
 
 
 def moe_shapes(d: int, cfg: MoEConfig, act: str) -> dict[str, Leaf]:
     """``moe.py::moe_spec``: the leaves of one MoE layer, with the
-    reference's fan-ins (E·d for ``wg``/``wu``/``wi``, E·f for
-    ``wd``/``wo``, d for the router)."""
+    reference's layout, logical axes and fan-ins (E·d for
+    ``wg``/``wu``/``wi``, E·f for ``wd``/``wo``, d for the router)."""
     e, f = cfg.n_routed, cfg.d_ff_expert
-    out = {"router": Leaf((d, e), d, True)}
+    out = {"router": leaf((d, "embed"), (e, "experts"), f32=True)}
+    up = leaf((e, "experts"), (d, "embed"), (f, "mlp"))
+    down = leaf((e, "experts"), (f, "mlp"), (d, "embed"))
     if act == "swiglu":
-        out.update(wg=Leaf((e, d, f), e * d), wu=Leaf((e, d, f), e * d), wd=Leaf((e, f, d), e * f))
+        out.update(wg=up, wu=up, wd=down)
     else:
-        out.update(wi=Leaf((e, d, f), e * d), wo=Leaf((e, f, d), e * f))
+        out.update(wi=up, wo=down)
     if cfg.n_shared:
         out.update({"shared." + k: v for k, v in mlp_shapes(d, f * cfg.n_shared, act).items()})
     if cfg.dense_residual_ff:

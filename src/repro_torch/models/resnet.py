@@ -22,7 +22,34 @@ from torch import nn
 
 from repro_torch.configs.base import ResNetConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import Dense, _pad_same
+from repro_torch.models.layers import F32, HWIO, LINEAR, Dense, Leaf, _pad_same, leaf, norm_shapes
+
+
+def _conv_shapes(cin: int, cout: int, k: int) -> dict[str, Leaf]:
+    return {"w": leaf((k, None), (k, None), (cin, "conv_in"), (cout, "conv_out"), order=HWIO),
+            **norm_shapes(cout, "layernorm", axis="conv_out")}
+
+
+def resnet_shapes(cfg: ResNetConfig) -> dict[str, Leaf]:
+    """``resnet_param_spec`` in the port's layout (the names of
+    ``ResNet.named_parameters()``), with the reference layout's dims,
+    logical axes and fan-ins: the frozen-BN ``scale`` and ``bias`` are
+    float32, the rest takes the model's dtype."""
+    out = {f"stem.{k}": v for k, v in _conv_shapes(3, cfg.width, 7).items()}
+    cin = cfg.width
+    for i, dep in enumerate(cfg.depths):
+        mid = cfg.width * 2**i
+        cout = mid * 4
+        for b in range(dep):
+            convs = {"c1": (cin, mid, 1), "c2": (mid, mid, 3), "c3": (mid, cout, 1)}
+            if b == 0:
+                convs["proj"] = (cin, cout, 1)
+            for c, args in convs.items():
+                out.update({f"stage{i}.b{b}.{c}.{k}": v for k, v in _conv_shapes(*args).items()})
+            cin = cout
+    out.update({"head.w": leaf((cin, "embed"), (cfg.n_classes, "classes"), order=LINEAR),
+                "head.b": leaf((cfg.n_classes, "classes"), const=True)})
+    return out
 
 
 class Conv(nn.Module):
@@ -36,9 +63,11 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):
-        y = F.conv2d(_pad_same(x, self.k, self.stride), self.w, stride=self.stride)
-        y = y * self.scale[:, None, None] + self.bias[:, None, None]
-        return F.relu(y) if self.act else y
+        """The conv in x's dtype, the affine (+ ReLU) in float32, the result
+        in x's dtype (``resnet.py::_conv``)."""
+        y = F.conv2d(_pad_same(x, self.k, self.stride), self.w.to(x.dtype), stride=self.stride)
+        y = y.to(F32) * self.scale[:, None, None] + self.bias[:, None, None]
+        return (F.relu(y) if self.act else y).to(x.dtype)
 
 
 class Bottleneck(nn.Module):
@@ -96,7 +125,8 @@ class ResNet(nn.Module):
                 p.zero_()
 
     def forward(self, images):
-        """images (B, H, W, 3) NHWC -> logits (B, n_classes) f32."""
+        """images (B, H, W, 3) NHWC -> logits (B, n_classes) f32: the pooled
+        features and the head in float32, as in the reference."""
         x = images.permute(0, 3, 1, 2).contiguous()
         x = self.stem(x)
         x = F.max_pool2d(_pad_same(x, 3, 2, value=-math.inf), 3, 2)
@@ -104,4 +134,4 @@ class ResNet(nn.Module):
             stage = getattr(self, f"stage{i}")
             for b in range(dep):
                 x = stage[f"b{b}"](x)
-        return self.head(x.mean(dim=(2, 3)))
+        return F.linear(x.to(F32).mean(dim=(2, 3)), self.head.w.to(F32), self.head.b.to(F32))

@@ -26,11 +26,16 @@ import torch.nn.functional as F
 from repro_torch.configs.base import SwinConfig
 from repro_torch.models.layers import (
     F32,
+    HEADS_OUT,
+    LINEAR,
     NEG,
+    QKV,
     Leaf,
     ParamTree,
     apply_mlp,
     apply_norm,
+    flat,
+    leaf,
     mlp_shapes,
     norm_shapes,
 )
@@ -70,17 +75,19 @@ def swin_window_for(cfg: SwinConfig, img_res: int) -> int:
 
 def swin_shapes(cfg: SwinConfig) -> dict[str, Leaf]:
     """``swin_param_spec`` in the port's layout, with the reference
-    layout's fan-ins."""
+    layout's dims, logical axes and fan-ins."""
     window = swin_window_for(cfg, cfg.img_res)
     d0, pin = cfg.dims[0], cfg.patch**2 * 3
-    out = {"patch_embed.w": Leaf((d0, pin), pin), "patch_embed.b": Leaf((d0,), None)}
+    out = {"patch_embed.w": leaf((pin, "conv_in"), (d0, "embed"), order=LINEAR),
+           "patch_embed.b": leaf((d0, "embed"), const=True)}
     out.update({f"pos_norm.{k}": v for k, v in norm_shapes(d0, "layernorm").items()})
     for i, (dep, dim) in enumerate(zip(cfg.depths, cfg.dims)):
         H = cfg.heads[i]
         dh = dim // H
-        layer = {"attn.wqkv": Leaf((3 * H * dh, dim), 3 * dim * H), "attn.bqkv": Leaf((3 * H * dh,), None),
-                 "attn.wo": Leaf((dim, H * dh), H * dh),
-                 "attn.rel_bias": Leaf(((2 * window - 1) ** 2, H), 1, scale=0.02)}
+        layer = {"attn.wqkv": leaf((3, "stack"), (dim, "embed"), (H, "q_heads"), (dh, "head_dim"), order=QKV),
+                 "attn.bqkv": leaf((3, "stack"), (H, "q_heads"), (dh, "head_dim"), order=flat(3), const=True),
+                 "attn.wo": leaf((H, "q_heads"), (dh, "head_dim"), (dim, "embed"), order=HEADS_OUT),
+                 "attn.rel_bias": leaf(((2 * window - 1) ** 2, None), (H, "q_heads"), fan_in=1, scale=0.02)}
         for g in ("ln1", "ln2"):
             layer.update({f"{g}.{k}": v for k, v in norm_shapes(dim, "layernorm").items()})
         layer.update({f"mlp.{k}": v for k, v in mlp_shapes(dim, 4 * dim, "gelu").items()})
@@ -88,9 +95,10 @@ def swin_shapes(cfg: SwinConfig) -> dict[str, Leaf]:
             out.update({f"stage{i}.l{j}.{k}": v for k, v in layer.items()})
         if i < len(cfg.dims) - 1:
             out.update({f"stage{i}.merge.norm.{k}": v for k, v in norm_shapes(4 * dim, "layernorm").items()})
-            out[f"stage{i}.merge.w"] = Leaf((cfg.dims[i + 1], 4 * dim), 4 * dim)
+            out[f"stage{i}.merge.w"] = leaf((4 * dim, "conv_in"), (cfg.dims[i + 1], "embed"), order=LINEAR)
     out.update({f"final_norm.{k}": v for k, v in norm_shapes(cfg.dims[-1], "layernorm").items()})
-    out.update({"head.w": Leaf((cfg.n_classes, cfg.dims[-1]), cfg.dims[-1]), "head.b": Leaf((cfg.n_classes,), None)})
+    out.update({"head.w": leaf((cfg.dims[-1], "embed"), (cfg.n_classes, "classes"), order=LINEAR),
+                "head.b": leaf((cfg.n_classes, "classes"), const=True)})
     return out
 
 

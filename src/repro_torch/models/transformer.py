@@ -44,6 +44,10 @@ from repro_torch.kernels.int8_kv_decode.ops import decode_attention
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     F32,
+    HEADS_IN,
+    HEADS_OUT,
+    LINEAR,
+    QKV,
     Leaf,
     ParamTree,
     _expand_kv,
@@ -52,8 +56,11 @@ from repro_torch.models.layers import (
     apply_rope,
     attention_blockwise,
     attention_core,
+    flat,
+    leaf,
     mlp_shapes,
     norm_shapes,
+    pad_heads,
 )
 
 
@@ -61,16 +68,20 @@ from repro_torch.models.layers import (
 class ParallelPlan:
     """The reference's parallelism and analysis knobs, by the same names.
 
-    On one card ``model_axis`` must be 1.  ``kv_cache_dtype`` (bf16 | int8),
-    ``kv_scale_fold``, ``attn_chunk``, ``mla_absorb``, ``fuse_qkv`` (MHA
-    only, as in the reference) and ``moe_grouped_dispatch`` (MoE prefill
-    and forward in ``data_axis`` groups when that divides the batch) are
-    honoured.  ``attn_mode`` "tp" and "sp" differ only in how the reference
-    shards attention, so on one card they compute the same.  ``remat``
+    ``model_axis`` > 1 pads the attention heads up to a multiple of it
+    under ``attn_mode="tp"`` with ``pad_attention_heads``
+    (``effective_heads``), as the reference does for its model-parallel
+    mesh; the padded model runs on one card, and its dead heads change
+    nothing when their ``wo`` columns and biases are 0.  ``kv_cache_dtype``
+    (bf16 | int8), ``kv_scale_fold``, ``attn_chunk``, ``mla_absorb``,
+    ``fuse_qkv`` (MHA only, as in the reference) and
+    ``moe_grouped_dispatch`` (MoE prefill and forward in ``data_axis``
+    groups when that divides the batch) are honoured.  ``attn_mode`` "tp"
+    and "sp" differ only in how the reference shards attention (and in the
+    padding), so on one card they compute the same.  ``remat``
     checkpoints each layer of ``lm_hidden`` under autograd.
-    ``analysis_unroll``, ``pad_attention_heads`` and ``fused_unembed_loss``
-    do not change the numbers at ``model_axis`` 1, so they are accepted
-    and ignored."""
+    ``analysis_unroll`` and ``fused_unembed_loss`` do not change the
+    numbers, so they are accepted and ignored."""
 
     model_axis: int = 1
     data_axis: int = 1  # the groups of grouped MoE dispatch
@@ -88,22 +99,26 @@ class ParallelPlan:
 
 
 def check_supported(cfg: LMConfig, plan: ParallelPlan) -> None:
-    """Raise on what one card does not run (a model axis) and on an unknown
-    attention mode or cache dtype."""
+    """Raise on a model axis below 1 and on an unknown attention mode or
+    cache dtype."""
     if plan.attn_mode not in ("tp", "sp"):
         raise ValueError(f"attn_mode must be 'tp' or 'sp', got {plan.attn_mode!r}")
-    if plan.model_axis != 1:
-        raise ValueError(f"the port runs on one card: model_axis must be 1, got {plan.model_axis}")
+    if plan.model_axis < 1:
+        raise ValueError(f"model_axis must be at least 1, got {plan.model_axis}")
     if plan.kv_cache_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got {plan.kv_cache_dtype!r}")
 
 
 def effective_heads(cfg: LMConfig, plan: ParallelPlan) -> tuple[int, int]:
-    """(q_heads, kv_heads).  The reference pads the heads up to a multiple
-    of ``model_axis`` under ``attn_mode="tp"`` with ``pad_attention_heads``
-    and leaves them unpadded otherwise; at the one card's ``model_axis`` 1
-    padding changes nothing."""
-    return cfg.n_heads, cfg.n_kv_heads
+    """(q_heads, kv_heads) after the padding to the model axis
+    (``transformer.py:58-68``): under ``attn_mode="tp"`` with
+    ``pad_attention_heads`` the q heads round up to a multiple of
+    ``model_axis`` (qwen's 40 to 48 at 16), and an MHA model's kv heads
+    follow them; a GQA model keeps its kv heads, so its head groups widen."""
+    if plan.attn_mode != "tp" or not plan.pad_attention_heads:
+        return cfg.n_heads, cfg.n_kv_heads
+    h = pad_heads(cfg.n_heads, plan.model_axis)
+    return h, (h if cfg.n_kv_heads == cfg.n_heads else cfg.n_kv_heads)
 
 
 # --------------------------------------------------------------------------- #
@@ -113,40 +128,48 @@ def effective_heads(cfg: LMConfig, plan: ParallelPlan) -> tuple[int, int]:
 
 def _attn_shapes(cfg: LMConfig, plan: ParallelPlan) -> dict[str, Leaf]:
     """``transformer.py::_attn_spec`` in the port's layout, with the
-    reference layout's fan-ins."""
+    reference layout's dims, logical axes and fan-ins."""
     d, Dh = cfg.d_model, cfg.d_head
     if cfg.use_mla:
         H, r, rope = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
         qk = cfg.qk_nope_head_dim + rope
-        out = {"w_dkv": Leaf((r + rope, d), d), "w_uk": Leaf((H * cfg.qk_nope_head_dim, r), r * H),
-               "w_uv": Leaf((H * cfg.v_head_dim, r), r * H), "wo": Leaf((d, H * cfg.v_head_dim), H * cfg.v_head_dim),
+        out = {"w_dkv": leaf((d, "embed"), (r + rope, "kv_lora"), order=LINEAR),
+               "w_uk": leaf((r, "kv_lora"), (H, "q_heads"), (cfg.qk_nope_head_dim, "head_dim"), order=HEADS_IN),
+               "w_uv": leaf((r, "kv_lora"), (H, "q_heads"), (cfg.v_head_dim, "head_dim"), order=HEADS_IN),
+               "wo": leaf((H, "q_heads"), (cfg.v_head_dim, "head_dim"), (d, "embed"), order=HEADS_OUT),
                **{"kv_norm." + k: v for k, v in norm_shapes(r, "rmsnorm").items()}}
         if cfg.q_lora_rank:
             qr = cfg.q_lora_rank
-            out.update({"w_dq": Leaf((qr, d), d), "w_uq": Leaf((H * qk, qr), qr * H),
+            out.update({"w_dq": leaf((d, "embed"), (qr, "kv_lora"), order=LINEAR),
+                        "w_uq": leaf((qr, "kv_lora"), (H, "q_heads"), (qk, "head_dim"), order=HEADS_IN),
                         **{"q_norm." + k: v for k, v in norm_shapes(qr, "rmsnorm").items()}})
         else:
-            out["wq"] = Leaf((H * qk, d), d * H)
+            out["wq"] = leaf((d, "embed"), (H, "q_heads"), (qk, "head_dim"), order=HEADS_IN)
         return out
     h, kh = effective_heads(cfg, plan)
+    wo = leaf((h, "q_heads"), (Dh, "head_dim"), (d, "embed"), order=HEADS_OUT)
     if plan.fuse_qkv and kh == h:
-        out = {"wqkv": Leaf((3 * h * Dh, d), 3 * d * h), "wo": Leaf((d, h * Dh), h * Dh)}
+        out = {"wqkv": leaf((3, "stack"), (d, "embed"), (h, "q_heads"), (Dh, "head_dim"), order=QKV), "wo": wo}
         if cfg.qkv_bias:
-            out["bqkv"] = Leaf((3 * h * Dh,), None)
+            out["bqkv"] = leaf((3, "stack"), (h, "q_heads"), (Dh, "head_dim"), order=flat(3), const=True)
         return out
-    out = {"wq": Leaf((h * Dh, d), d * h), "wk": Leaf((kh * Dh, d), d * kh),
-           "wv": Leaf((kh * Dh, d), d * kh), "wo": Leaf((d, h * Dh), h * Dh)}
+    out = {"wq": leaf((d, "embed"), (h, "q_heads"), (Dh, "head_dim"), order=HEADS_IN),
+           "wk": leaf((d, "embed"), (kh, "kv_heads"), (Dh, "head_dim"), order=HEADS_IN),
+           "wv": leaf((d, "embed"), (kh, "kv_heads"), (Dh, "head_dim"), order=HEADS_IN), "wo": wo}
     if cfg.qkv_bias:
-        out.update(bq=Leaf((h * Dh,), None), bk=Leaf((kh * Dh,), None), bv=Leaf((kh * Dh,), None))
+        out.update(bq=leaf((h, "q_heads"), (Dh, "head_dim"), order=flat(2), const=True),
+                   bk=leaf((kh, "kv_heads"), (Dh, "head_dim"), order=flat(2), const=True),
+                   bv=leaf((kh, "kv_heads"), (Dh, "head_dim"), order=flat(2), const=True))
     return out
 
 
-def _param_shapes(cfg: LMConfig, plan: ParallelPlan) -> dict[str, Leaf]:
+def lm_param_shapes(cfg: LMConfig, plan: ParallelPlan) -> dict[str, Leaf]:
     """{dotted name: Leaf} of the whole model (``lm_param_spec``): a layer at
     or after ``moe.first_k_dense`` has ``moe``, the others ``mlp`` of width
-    ``first_dense_ff or d_ff``."""
+    ``first_dense_ff or d_ff``.  The token table is sharded on d_model
+    (``embed_tbl``), as the reference's is."""
     d, V = cfg.d_model, cfg.vocab_size
-    out = {"embed": Leaf((V, d), d)}
+    out = {"embed": leaf((V, None), (d, "embed_tbl"), fan_in=d)}
     for i in range(cfg.n_layers):
         layer = {"ln1": norm_shapes(d, cfg.norm), "attn": _attn_shapes(cfg, plan), "ln2": norm_shapes(d, cfg.norm)}
         if cfg.moe is not None and i >= cfg.moe.first_k_dense:
@@ -157,7 +180,7 @@ def _param_shapes(cfg: LMConfig, plan: ParallelPlan) -> dict[str, Leaf]:
         out.update({f"layers.{i}.{g}.{k}": v for g, leaves in layer.items() for k, v in leaves.items()})
     out.update({"final_norm." + k: v for k, v in norm_shapes(d, cfg.norm).items()})
     if not cfg.tie_embeddings:
-        out["unembed"] = Leaf((V, d), d)
+        out["unembed"] = leaf((d, "embed"), (V, "vocab"), order=LINEAR)
     return out
 
 
@@ -179,7 +202,7 @@ class TransformerLM(ParamTree):
                  generator: torch.Generator | None = None, device=None, dtype=torch.bfloat16):
         plan = plan or ParallelPlan()
         check_supported(cfg, plan)
-        super().__init__(_param_shapes(cfg, plan), generator=generator, device=device, dtype=dtype)
+        super().__init__(lm_param_shapes(cfg, plan), generator=generator, device=device, dtype=dtype)
         self.cfg, self.plan = cfg, plan
 
 

@@ -29,7 +29,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import UNetConfig
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.models.layers import F32, Leaf, ParamTree, _same_pad, apply_norm, norm_shapes, sinusoidal_embedding
+from repro_torch.models.layers import (HEADS_IN, HEADS_OUT, HWIO, LINEAR, F32, Leaf, ParamTree, _same_pad, apply_norm, leaf,
+                                      norm_shapes, sinusoidal_embedding)
 
 GN_GROUPS = 32
 
@@ -38,7 +39,7 @@ GN_GROUPS = 32
 
 
 def _gn_shapes(c: int) -> dict[str, Leaf]:
-    return {"scale": Leaf((c,), None, True), "bias": Leaf((c,), None, True)}
+    return norm_shapes(c, "layernorm", axis="conv_out")
 
 
 def apply_gn(p, x, groups: int = GN_GROUPS, eps: float = 1e-5):
@@ -53,7 +54,8 @@ def apply_gn(p, x, groups: int = GN_GROUPS, eps: float = 1e-5):
 
 
 def _conv_shapes(cin: int, cout: int, k: int = 3) -> dict[str, Leaf]:
-    return {"w": Leaf((cout, cin, k, k), k * k * cin), "b": Leaf((cout,), None)}
+    return {"w": leaf((k, None), (k, None), (cin, "conv_in"), (cout, "conv_out"), order=HWIO),
+            "b": leaf((cout, "conv_out"), const=True)}
 
 
 def _conv(p, x, stride: int = 1):
@@ -70,8 +72,8 @@ def _conv(p, x, stride: int = 1):
     return y.permute(0, 2, 3, 1) + p["b"].to(x.dtype)
 
 
-def _lin_shapes(cin: int, cout: int, zero: bool = False) -> dict[str, Leaf]:
-    return {"w": Leaf((cout, cin), None if zero else cin), "b": Leaf((cout,), None)}
+def _lin_shapes(cin: int, cout: int, axes=("embed", "mlp"), zero: bool = False) -> dict[str, Leaf]:
+    return {"w": leaf((cin, axes[0]), (cout, axes[1]), order=LINEAR, const=zero), "b": leaf((cout, axes[1]), const=True)}
 
 
 def _lin(p, x):
@@ -97,7 +99,7 @@ def _group(prefix: str, leaves: dict[str, Leaf]) -> dict[str, Leaf]:
 
 def _res_shapes(cin: int, cout: int, t_dim: int) -> dict[str, Leaf]:
     out = {**_group("gn1", _gn_shapes(cin)), **_group("c1", _conv_shapes(cin, cout)),
-           **_group("temb", _lin_shapes(t_dim, cout)), **_group("gn2", _gn_shapes(cout)),
+           **_group("temb", _lin_shapes(t_dim, cout, axes=("embed", "conv_out"))), **_group("gn2", _gn_shapes(cout)),
            **_group("c2", _conv_shapes(cout, cout))}
     if cin != cout:
         out.update(_group("skip", _conv_shapes(cin, cout, k=1)))
@@ -117,15 +119,15 @@ def _res_block(p, x, temb):
 
 def _tf_block_shapes(ch: int, ctx_dim: int, head_dim: int) -> dict[str, Leaf]:
     H = max(ch // head_dim, 1)
-    hd = H * head_dim
-    out = {"self_q": Leaf((hd, ch), ch * H), "self_k": Leaf((hd, ch), ch * H), "self_v": Leaf((hd, ch), ch * H),
-           "self_o": Leaf((ch, hd), hd), "cross_q": Leaf((hd, ch), ch * H),
-           "cross_k": Leaf((hd, ctx_dim), ctx_dim * H), "cross_v": Leaf((hd, ctx_dim), ctx_dim * H),
-           "cross_o": Leaf((ch, hd), hd)}
+    q = leaf((ch, "embed"), (H, "q_heads"), (head_dim, "head_dim"), order=HEADS_IN)
+    kv = leaf((ctx_dim, "ctx"), (H, "q_heads"), (head_dim, "head_dim"), order=HEADS_IN)
+    o = leaf((H, "q_heads"), (head_dim, "head_dim"), (ch, "embed"), order=HEADS_OUT)
+    out = {"self_q": q, "self_k": q, "self_v": q, "self_o": o, "cross_q": q, "cross_k": kv, "cross_v": kv,
+           "cross_o": o}
     for g in ("ln1", "ln2", "ln3"):
         out.update(_group(g, norm_shapes(ch, "layernorm")))
     out.update({**_group("ff_g", _lin_shapes(ch, 4 * ch)), **_group("ff_u", _lin_shapes(ch, 4 * ch)),
-                **_group("ff_o", _lin_shapes(4 * ch, ch))})
+                **_group("ff_o", _lin_shapes(4 * ch, ch, axes=("mlp", "embed")))})
     return out
 
 
@@ -152,10 +154,10 @@ def _tf_block(p, x, ctx, head_dim: int):
 
 
 def _spatial_tf_shapes(ch: int, depth: int, ctx_dim: int, head_dim: int) -> dict[str, Leaf]:
-    out = {**_group("gn", _gn_shapes(ch)), **_group("proj_in", _lin_shapes(ch, ch))}
+    out = {**_group("gn", _gn_shapes(ch)), **_group("proj_in", _lin_shapes(ch, ch, axes=("conv_in", "embed")))}
     for i in range(depth):
         out.update(_group(f"blocks.b{i}", _tf_block_shapes(ch, ctx_dim, head_dim)))
-    out.update(_group("proj_out", _lin_shapes(ch, ch, zero=True)))
+    out.update(_group("proj_out", _lin_shapes(ch, ch, axes=("embed", "conv_out"), zero=True)))
     return out
 
 

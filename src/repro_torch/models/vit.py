@@ -23,7 +23,8 @@ from repro_torch.configs.base import ViTConfig
 from repro_torch.core.cascade import _resize
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.models.layers import Dense, apply_mlp, apply_norm
+from repro_torch.models.layers import (HEADS_OUT, LINEAR, QKV, Dense, Leaf, apply_mlp, apply_norm, flat, leaf,
+                                      mlp_shapes, norm_shapes)
 
 F32 = torch.float32
 WEIGHTS = (".w", ".wqkv", ".wo", ".wi")  # drawn fan-in-scaled; every other leaf is constant
@@ -96,6 +97,37 @@ def _interp_pos(pos: torch.Tensor, n_special: int, n_tok_new: int) -> torch.Tens
     d = grid.shape[-1]
     grid2 = _resize(grid.reshape(1, g_old, g_old, d).to(F32), g_new).to(grid.dtype)
     return torch.cat([special, grid2.reshape(1, g_new * g_new, d)], dim=1)
+
+
+def vit_shapes(cfg: ViTConfig) -> dict[str, Leaf]:
+    """``vit_param_spec`` in the port's layout (the names of
+    ``ViT.named_parameters()``), with the reference layout's dims,
+    logical axes and fan-ins: the norms are float32, the rest takes the
+    model's dtype."""
+    d, H = cfg.d_model, cfg.n_heads
+    dh = d // H
+    n_tok = (cfg.img_res // cfg.patch) ** 2 + 1 + int(cfg.distill_token)
+    token = leaf((1, None), (1, None), (d, "embed"), const=True)
+    out = {"patch_embed.w": leaf((cfg.patch * cfg.patch * 3, "conv_in"), (d, "embed"), order=LINEAR),
+           "patch_embed.b": leaf((d, "embed"), const=True), "cls_token": token,
+           "pos_embed": leaf((1, None), (n_tok, None), (d, "embed"), fan_in=1, scale=0.02)}
+    layer = {**{f"ln1.{k}": v for k, v in norm_shapes(d, "layernorm").items()},
+             "attn.wqkv": leaf((3, "stack"), (d, "embed"), (H, "q_heads"), (dh, "head_dim"), order=QKV),
+             "attn.bqkv": leaf((3, "stack"), (H, "q_heads"), (dh, "head_dim"), order=flat(3), const=True),
+             "attn.wo": leaf((H, "q_heads"), (dh, "head_dim"), (d, "embed"), order=HEADS_OUT),
+             "attn.bo": leaf((d, "embed"), const=True),
+             **{f"ln2.{k}": v for k, v in norm_shapes(d, "layernorm").items()},
+             **{f"mlp.{k}": v for k, v in mlp_shapes(d, cfg.d_ff, "gelu").items()}}
+    for i in range(cfg.n_layers):
+        out.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    out.update({f"final_norm.{k}": v for k, v in norm_shapes(d, "layernorm").items()})
+    heads = ("head", "head_dist") if cfg.distill_token else ("head",)
+    for h in heads:
+        out.update({f"{h}.w": leaf((d, "embed"), (cfg.n_classes, "classes"), order=LINEAR),
+                    f"{h}.b": leaf((cfg.n_classes, "classes"), const=True)})
+    if cfg.distill_token:
+        out["dist_token"] = token
+    return out
 
 
 class ViT(nn.Module):

@@ -16,11 +16,12 @@ anyway: the premise of the paper's fast tier).  Two numbers per cut:
 byte for byte the ``payload_sizes`` table) and one action per catalog cut
 into ``policy.types.ActionTable`` for the frontier DP and the engine.
 
-The reference takes its compute bound from its TPU roofline module, which
-the port does not have (ROADMAP A.13); ``roofline_compute_s`` below is its
-compute term, the only one these costs use.  ``t_srv_peak`` is reported
-against ``TPU_V5E_PEAK_FLOPS_BF16``, the reference's default server peak,
-kept for parity only: it is a TPU v5e figure, not an H100 one.
+Both times are ``launch/roofline.py::roofline_terms(flops, 0, 0,
+peak=...).bound_s``: with no bytes and no collectives the bound is the
+compute term, as in the reference.  The default ``server_peak`` stays the
+reference's, ``TPU_V5E_PEAK_FLOPS_BF16``, so that ``t_srv_peak`` equals
+the reference's bit for bit: it is a TPU v5e figure, not an H100 one
+(the roofline module's own peaks are the H100's).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from repro_torch.core.netsim import payload_sizes
+from repro_torch.launch.roofline import roofline_terms
 from repro_torch.policy.types import ActionTable
 from repro_torch.split.points import CutCatalog
 
@@ -39,12 +41,6 @@ DEFAULT_NPU_PEAK = 7e12
 # The reference's default server peak (its launch/roofline.py): TPU v5e
 # bf16.  Kept for parity of ``t_srv_peak`` only; not an H100 number.
 TPU_V5E_PEAK_FLOPS_BF16 = 197e12
-
-
-def roofline_compute_s(flops: float, *, peak: float) -> float:
-    """The compute term of the reference's ``roofline_terms(flops, 0, 0,
-    peak=peak).bound_s``: with no bytes moved it is the whole bound."""
-    return flops / peak
 
 
 @dataclass(frozen=True)
@@ -62,8 +58,8 @@ def split_costs(catalog: CutCatalog, *, device_peak: float = DEFAULT_NPU_PEAK,
     """Roofline costs for every cut in the catalog."""
     out = []
     for p in catalog:
-        t_dev = roofline_compute_s(p.prefix_flops, peak=device_peak)
-        t_srv = roofline_compute_s(p.suffix_flops, peak=server_peak)
+        t_dev = roofline_terms(p.prefix_flops, 0.0, 0.0, peak=device_peak).bound_s
+        t_srv = roofline_terms(p.suffix_flops, 0.0, 0.0, peak=server_peak).bound_s
         out.append(SplitCost(cut_id=p.cut_id, t_dev=t_dev,
                              srv_frac=p.suffix_fraction, t_srv_peak=t_srv))
     return tuple(out)

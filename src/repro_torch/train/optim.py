@@ -17,8 +17,8 @@ the compression round trip (``torch.round`` rounds half to even, as
 casts to bf16 are the same float32 operations in the same order.  The
 clip's global norm sums the squared norms in the module's parameter
 order, where the reference sums them in ``jax.tree.leaves`` order, so the
-factor may differ in its last bits.  The ZeRO/FSDP ``state_struct``
-(dry-run scaffolding) belongs to the sharding port.
+factor may differ in its last bits.  ``state_struct`` is the dry run's
+stand-in for the state, on the meta device.
 """
 from __future__ import annotations
 
@@ -62,6 +62,21 @@ def init_state(cfg: OptimConfig, params) -> dict:
     if cfg.compress_grads:
         state["err"] = zeros(torch.bfloat16)
     return state
+
+
+def state_struct(cfg: OptimConfig, param_struct: dict) -> dict:
+    """``init_state``'s shapes and dtypes as meta tensors (the dry run's
+    optimizer state; nothing is allocated): "step" int32, "m" and "v" in
+    m_dtype / v_dtype, and "err" bf16 with ``compress_grads``."""
+    dt_m, dt_v = getattr(torch, cfg.m_dtype), getattr(torch, cfg.v_dtype)
+
+    def like(dtype):
+        return {k: torch.empty(s.shape, dtype=dtype, device="meta") for k, s in param_struct.items()}
+
+    st = {"step": torch.empty((), dtype=torch.int32, device="meta"), "m": like(dt_m), "v": like(dt_v)}
+    if cfg.compress_grads:
+        st["err"] = like(torch.bfloat16)
+    return st
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -40,7 +40,10 @@ kernel once a layer or twice a transformer block, Swin and the CPU never.
 No kernel has a backward: each wrapper raises under autograd (and a ViT's
 backward on the card with it), and launches under ``no_grad``; one batch
 of the paper's slow tier gives the CPU's loss within 1e-5 relative and
-its grads within 1e-4 of their scale.
+its grads within 1e-4 of their scale.  The dry run's counter: each kernel
+dispatcher reports the same cost on the card as on meta, and a bf16
+deit-smoke forward and a resnet-smoke train step count the same FLOPs and
+bytes on both; ``host_shard`` on a one-card NCCL ``DeviceMesh``.
 """
 import numpy as np
 import pytest
@@ -1214,3 +1217,104 @@ def test_slow_tier_grads_card_match_cpu(cuda_device):
             assert float((gg[k] - gc[k]).abs().max()) <= 1e-4 * scale, k
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _dispatcher_calls(device):
+    """Each kernel's dispatcher (``ops.py``) on ``device``, with inputs of
+    that device's kind (meta tensors hold no values)."""
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.fused_calib_gate.ops import calibrated_gate
+    from repro_torch.kernels.int8_kv_decode.ops import decode_attention
+    from repro_torch.kernels.int8_matmul.ops import quantized_matmul
+
+    g = torch.Generator().manual_seed(0)
+
+    def f(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(dtype).to(device)
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(device)
+
+    return {
+        "calib_gate": lambda: calibrated_gate(f(8, 1000), -6.0, 2.0, 0.5),
+        "flash_attention": lambda: attention(*(f(2, 80, 4, 64, dtype=torch.bfloat16) for _ in range(3)), causal=True),
+        "int8_matmul": lambda: quantized_matmul(f(32, 64), f(64, 48)),
+        "int8_kv_decode": lambda: decode_attention(f(2, 8, 64), s8(2, 40, 2, 64), f(2, 40).abs(), s8(2, 40, 2, 64),
+                                                   f(2, 40).abs()),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["calib_gate", "flash_attention", "int8_matmul", "int8_kv_decode"])
+def test_dispatchers_report_the_same_cost_on_the_card_and_on_meta(cuda_device, name):
+    """On the card a dispatcher launches its kernel once and reports
+    ``kernels/cost.py``'s formula to the open counter; on meta it launches
+    nothing and reports the same numbers."""
+    from repro_torch.launch.roofline import CostCounter
+
+    wrapper = {"calib_gate": cg_kernel.calib_gate, "flash_attention": fa_kernel.flash_attention,
+               "int8_matmul": i8_kernel.int8_matmul, "int8_kv_decode": kv_kernel.int8_kv_decode}[name]
+    counts = {}
+    for dev in ("cuda", "meta"):
+        call = _dispatcher_calls(dev)[name]
+        before = wrapper.launches
+        with torch.no_grad(), CostCounter() as c:
+            call()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + (dev == "cuda")
+        counts[dev] = c.per_kernel[name]
+    assert counts["cuda"] == counts["meta"] and counts["cuda"][0] == 1
+
+
+@pytest.mark.cuda
+def test_counts_on_the_card_equal_meta_counts(cuda_device):
+    """deit-smoke's bf16 forward (the flash kernel, D = 16) and a
+    resnet-smoke train step (bf16 casts of float32 masters, backward,
+    AdamW) counted on the card and on meta: the same FLOPs and bytes."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.cells import make_step
+    from repro_torch.launch.roofline import CostCounter
+    from repro_torch.models import api
+    from repro_torch.train import optim
+
+    deit, resnet = api.build(DEIT_SMOKE), api.build(SMOKE)
+    shape = ShapeSpec("cls", "train", img_res=SMOKE.img_res, batch=4)
+    step = make_step(resnet, SMOKE, shape, optim.OptimConfig())
+    counts = {}
+    for dev in ("cuda", "meta"):
+        with torch.device(dev):
+            vit = deit.init(torch.Generator(device="cuda").manual_seed(0) if dev == "cuda" else None, dev,
+                            torch.bfloat16)
+            rn = resnet.init(torch.Generator(device="cuda").manual_seed(1) if dev == "cuda" else None, dev,
+                             torch.float32)
+        imgs = torch.randn(4, DEIT_SMOKE.img_res, DEIT_SMOKE.img_res, 3, device="cpu").to(dev, torch.bfloat16)
+        batch = {"images": torch.randn(4, SMOKE.img_res, SMOKE.img_res, 3).to(dev, torch.bfloat16),
+                 "labels": torch.randint(0, SMOKE.n_classes, (4,)).to(dev, torch.int32)}
+        opt = optim.init_state(optim.OptimConfig(), rn)
+        with CostCounter() as c:
+            with torch.no_grad():
+                deit.forward(vit, imgs)
+            step(rn, opt, batch)
+        counts[dev] = (c.flops, c.bytes, dict(c.per_kernel))
+    assert counts["cuda"] == counts["meta"]
+    assert counts["cuda"][2]["flash_attention"][0] == DEIT_SMOKE.n_layers
+
+
+@pytest.mark.cuda
+def test_host_shard_on_a_one_card_mesh(cuda_device):
+    """A (1, 1) ``DeviceMesh`` over the card in a one-process NCCL group:
+    ``host_shard`` places a host tensor on the card as a ``DTensor`` with
+    the resolved placements, and its local shard is the whole tensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import make_local_mesh, process_group
+    from repro_torch.sharding.axes import host_shard, sharding_ctx
+
+    with process_group("cuda"):
+        mesh = make_local_mesh(model_axis=8, device="cuda")
+        assert mesh.device_type == "cuda" and tuple(mesh.mesh.shape) == (1, 1)
+        x = torch.arange(24.0).reshape(4, 6)
+        with sharding_ctx(mesh):
+            d = host_shard(x, "batch", None)
+        assert isinstance(d, DTensor) and d.placements == (Shard(0), Replicate())
+        assert d.to_local().is_cuda and torch.equal(d.to_local().cpu(), x)

@@ -154,8 +154,12 @@ def test_transformer_lm_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_plan_needs_one_card():
+    """The plan runs on one card at any model axis: one above 1 pads the
+    heads (``effective_heads``), one below 1 is refused."""
     with pytest.raises(ValueError, match="model_axis"):
-        tt.check_supported(qwen15_32b.SMOKE, tt.ParallelPlan(model_axis=2))
+        tt.check_supported(qwen15_32b.SMOKE, tt.ParallelPlan(model_axis=0))
+    tt.check_supported(qwen15_32b.SMOKE, tt.ParallelPlan(model_axis=2))
+    assert tt.effective_heads(qwen15_32b.SMOKE, tt.ParallelPlan(model_axis=3)) == (6, 6)
 
 
 @pytest.mark.parametrize("jcfg,tcfg", SMOKES, ids=SMOKE_IDS)

@@ -36,6 +36,7 @@ from repro.models import swin as jswin
 from repro.models.ptree import tree_count
 from repro.models.resnet import resnet_forward
 from repro.quant.quantize import qdq_tree as jax_qdq_tree
+from repro_torch.configs.base import ShapeSpec as TShapeSpec
 from repro_torch.configs.resnet_50 import SMOKE as RESNET_SMOKE
 from repro_torch.configs.swin_b import FULL as SWIN_B, SMOKE as SWIN_SMOKE
 from repro_torch.core.calibration import PlattCalibrator
@@ -81,10 +82,10 @@ def test_swin_at_config_for_shape_doubles_the_window():
     rule), the relative-position bias with it."""
     res = 2 * JAX_SWIN_SMOKE.img_res
     jcfg = api.config_for_shape(JAX_SWIN_SMOKE, ShapeSpec("serve", "serve", img_res=res, batch=2))
-    tcfg = tapi.config_for_shape(SWIN_SMOKE, res)
+    tcfg = tapi.config_for_shape(SWIN_SMOKE, TShapeSpec("serve", "serve", img_res=res, batch=2))
     assert (tcfg.window, tcfg.img_res) == (jcfg.window, jcfg.img_res) == (8, res)
-    assert tapi.config_for_shape(SWIN_SMOKE, 0) is SWIN_SMOKE
-    assert tapi.config_for_shape(SWIN_B, 384).window == 12
+    assert tapi.config_for_shape(SWIN_SMOKE, TShapeSpec("lm", "prefill")) is SWIN_SMOKE
+    assert tapi.config_for_shape(SWIN_B, TShapeSpec("cls_384", "train", img_res=384)).window == 12
     p, model = _pair(jcfg, tcfg, seed=4)
     assert model.state_dict()["stage0.l0.attn.rel_bias"].shape == (15**2, SWIN_SMOKE.heads[0])
     x = _images(2, res, seed=3)
