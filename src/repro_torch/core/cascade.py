@@ -97,14 +97,18 @@ def cascade_classify(fast_forward: Callable, slow_forward: Callable, calibrate: 
     return CascadeOut(merged, fast_preds, conf, escalated, esc_idx)
 
 
-def slow_pass_multires(slow_forward, images, resolutions):
+def slow_pass_multires(slow_forward, images, resolutions, profiler=None):
     """Slow-tier half for a gathered escalation batch: each frame degraded
-    at its own planned resolution, then ONE slow-tier call for the batch."""
+    at its own planned resolution, then ONE slow-tier call for the batch.
+    ``profiler`` (``obs.PhaseProfiler``) counts each resolution's index
+    copy, from pageable host memory, under ``"syncs"``."""
     res = np.asarray(resolutions)
     if len(res) != images.shape[0]:
         raise ValueError("one resolution per gathered image")
     degraded = images.clone()
     for r in np.unique(res):
+        if profiler is not None:
+            profiler.count("syncs")
         sel = torch.as_tensor(np.flatnonzero(res == r), device=images.device)
         degraded[sel] = degrade_resolution(images[sel], int(r))
     return slow_forward(degraded).argmax(dim=-1)

@@ -9,8 +9,10 @@ zero cost when off (the engine holds ``None`` and skips every hook).
     cell/replica contention, occupancy, decision histograms);
   * ``trace.FrameTracer`` — per-escalation lifecycle spans with
     cell/replica/batch ids, exported as Chrome trace-event JSON;
-  * ``profile.PhaseProfiler`` — host wall-clock phase breakdown (plan /
-    serve / transmit / fold).
+  * ``profile.PhaseProfiler`` — the numpy round loop's host spans (a
+    ``round`` root over slice / h2d / fast / fast_wait / plan / gate /
+    slow / slow_wait / transmit / fold / hook), their per-phase totals
+    and the per-round ``syncs`` counter.
 
 ``Telemetry`` is the bundle the engine consumes: pick the parts with
 flags; the server binds the fleet's dimensions at construction.
@@ -22,19 +24,19 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
-from repro_torch.obs.profile import DEFAULT, PhaseProfiler, aot_split
+from repro_torch.obs.profile import PhaseProfiler, aot_split
 from repro_torch.obs.timeseries import FleetRecorder, relock_lags
 from repro_torch.obs.trace import FrameTracer, export_chrome_trace
 
 __all__ = ["Telemetry", "FleetRecorder", "FrameTracer", "PhaseProfiler",
-           "export_chrome_trace", "relock_lags", "DEFAULT", "aot_split"]
+           "export_chrome_trace", "relock_lags", "aot_split"]
 
 
 @dataclass
 class Telemetry:
     """What to observe: ``record`` (per-round series, cheap, default on),
-    ``trace`` (per-frame lifecycle spans), ``profile`` (per-phase host
-    wall clock).  Pass to ``MultiStreamServer(telemetry=...)``; the server
+    ``trace`` (per-frame lifecycle spans), ``profile`` (the round loop's
+    host spans and counters).  Pass to ``MultiStreamServer(telemetry=...)``; the server
     calls ``bind`` with the fleet's dimensions and the parts materialize
     lazily (pre-built parts are kept)."""
 

@@ -1,12 +1,17 @@
-"""Phase timers for the engines and the chip script (port of
-``repro.obs.profile``).
+"""Spans, phase timers and counters for the engines and the chip script
+(port of ``repro.obs.profile``, which keeps the timers only).
 
-``PhaseProfiler`` holds wall-clock accumulators for the numpy engine's
-per-round phases (plan / serve / transmit / fold).  It reads the host
-clock and never synchronizes the card, so a phase holds device time only
-where the engine already waits for a tier's result.  Zero cost when off:
-the engines hold ``None`` and never touch a clock.  ``summarize()`` is the
-reporting format.
+``PhaseProfiler`` logs the numpy engine's spans: each round is a root span
+``round`` whose children are the loop's steps (``MultiStreamServer`` names
+them), each with its round id, parent, start and end on
+``time.perf_counter``.  Every span but the round also adds to the
+per-phase accumulators that ``summarize()`` reports in the reference's
+format, and ``count`` keeps named counts per round.  While a
+``torch.profiler`` records, each span also opens a ``record_function``
+range ``serving.<name>``, so the spans share the device trace's clock.
+The profiler reads the host clock and never synchronizes the card, so a
+span holds device time only where the engine already waits for a result.
+Zero cost when off: the engines hold ``None`` and never touch a clock.
 
 ``aot_split`` is the counterpart of the reference's compile-vs-steady
 split: it warms a step up and captures it as a CUDA graph (the round
@@ -17,31 +22,109 @@ from __future__ import annotations
 
 import time
 from contextlib import contextmanager
+from typing import NamedTuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["PhaseProfiler", "DEFAULT", "aot_split"]
+__all__ = ["PhaseProfiler", "Span", "aot_split", "ROUND", "RANGE_PREFIX"]
+
+ROUND = "round"  # the root span of each round
+RANGE_PREFIX = "serving."  # a span's ``record_function`` range: this and its name
+
+
+class Span(NamedTuple):
+    """One timed region: ``round`` is the id of the round it ran in (-1
+    outside any), ``parent`` the index in the log of the span around it
+    (-1 for a root), ``start`` and ``end`` ``time.perf_counter`` seconds."""
+
+    name: str
+    round: int
+    parent: int
+    start: float
+    end: float
 
 
 class PhaseProfiler:
-    """Named wall-clock accumulators (total seconds + call counts)."""
+    """Named wall-clock accumulators (total seconds + call counts), the
+    span log and per-round counters."""
 
     def __init__(self):
         self.totals: dict[str, float] = {}
         self.counts: dict[str, int] = {}
+        self.spans: list[Span | None] = []  # in start order; None while a span is open
+        self.counters: dict[str, dict[int, int]] = {}  # name -> {round id: count}
+        self.n_rounds = 0
+        self._open: list[tuple] = []  # (log index, name, start, profiler range, is a round)
+        self._round = -1
 
     def add(self, name: str, seconds: float) -> None:
         self.totals[name] = self.totals.get(name, 0.0) + float(seconds)
         self.counts[name] = self.counts.get(name, 0) + 1
 
+    def open(self, name: str) -> None:
+        """Open a span inside the innermost open one; ``close`` ends it."""
+        self._push(name, False)
+
+    def _push(self, name: str, is_round: bool) -> None:
+        rng = None
+        if _autograd_profiler._is_profiler_enabled:
+            rng = torch.profiler.record_function(RANGE_PREFIX + name)
+            rng.__enter__()
+        self._open.append((len(self.spans), name, time.perf_counter(), rng, is_round))
+        self.spans.append(None)
+
+    def close(self) -> None:
+        """End the innermost open span and log it."""
+        t1 = time.perf_counter()
+        i, name, t0, rng, is_round = self._open.pop()
+        if rng is not None:
+            rng.__exit__(None, None, None)
+        self.spans[i] = Span(name, self._round, self._open[-1][0] if self._open else -1, t0, t1)
+        if is_round:
+            self._round = -1
+        else:
+            self.add(name, t1 - t0)
+
+    def switch(self, name: str) -> None:
+        """End the innermost open span and open ``name`` beside it."""
+        self.close()
+        self.open(name)
+
+    def open_round(self) -> None:
+        """Open the root span of the next round, whose id is ``n_rounds``.
+        It is logged but not added to the accumulators, which keep the
+        disjoint phases inside it."""
+        self._round = self.n_rounds
+        self.n_rounds += 1
+        self._push(ROUND, True)
+
+    def close_all(self) -> None:
+        """End every open span, innermost first (a loop left by an exception)."""
+        while self._open:
+            self.close()
+
     @contextmanager
     def phase(self, name: str):
-        """``with prof.phase("plan"): ...`` — one timed region."""
-        t0 = time.perf_counter()
+        """``with prof.phase("plan"): ...`` — one timed span."""
+        self.open(name)
         try:
             yield
         finally:
-            self.add(name, time.perf_counter() - t0)
+            self.close()
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the counter ``name`` of the open round."""
+        per = self.counters.setdefault(name, {})
+        per[self._round] = per.get(self._round, 0) + n
+
+    def self_times(self) -> list[float]:
+        """Each closed span's seconds less its children's, in log order."""
+        out = [s.end - s.start if s is not None else 0.0 for s in self.spans]
+        for s in self.spans:
+            if s is not None and s.parent >= 0:
+                out[s.parent] -= s.end - s.start
+        return out
 
     def __bool__(self) -> bool:  # "does it hold samples"
         return bool(self.totals)
@@ -58,8 +141,14 @@ class PhaseProfiler:
         return out
 
     def reset(self) -> None:
+        """Drop every sample; not while a span is open."""
+        if self._open:
+            raise RuntimeError(f"reset with {len(self._open)} span(s) open")
         self.totals.clear()
         self.counts.clear()
+        self.spans.clear()
+        self.counters.clear()
+        self.n_rounds = 0
 
 
 @torch.inference_mode()
@@ -101,7 +190,3 @@ def aot_split(fn, *state: torch.Tensor, profiler: PhaseProfiler | None = None):
     if profiler is not None:
         profiler.add("compile", dt)
     return replay, dt
-
-
-# a process-wide profiler for callers that do not thread one through
-DEFAULT = PhaseProfiler()

@@ -165,8 +165,10 @@ class MultiStreamServer:
     vectorized deadline/metric accounting: no per-stream or per-frame
     Python.  ``round_hook``, when set, is called with one dict per round
     (the reference's keys).  ``telemetry`` (``obs.Telemetry``) adds a
-    per-round recorder, a frame tracer and a phase profiler; ``None`` is
-    the zero-cost path.  ``backend="torch"`` runs the round loop on
+    per-round recorder, a frame tracer and a profiler of the round's host
+    spans (slice, h2d, fast, fast_wait, plan, gate, slow, slow_wait,
+    transmit, fold, hook) and of its blocking transfers (``syncs``);
+    ``None`` is the zero-cost path.  ``backend="torch"`` runs the round loop on
     ``device`` (the reference's ``backend="jax"``; configurations it cannot
     express raise at construction, ``engine_torch.torch_unsupported``).
     """
@@ -263,164 +265,196 @@ class MultiStreamServer:
         if self.backend == "torch":
             return self._process_streams_torch(frames, labels, schedule)
         # telemetry hooks: host clocks only, no device synchronization; a
-        # phase holds device time where the round already waits for it
+        # span holds device time where the round already waits for it.  The
+        # profiler's spans: a ``round`` root over the steps below, each
+        # opened and closed behind ``prof is not None`` (``plan`` is
+        # ``FleetRunner.plan_all``'s own); ``syncs`` counts the round's
+        # blocking transfers (copies to the host, and to the device from
+        # pageable memory, which wait for the stream)
         tel = self.telemetry
         rec = tel.recorder if tel is not None else None
         tracer = tel.tracer if tel is not None else None
         prof = tel.profiler if tel is not None else None
 
-        for start, arr, valid in schedule.rounds(B):
-            b = arr.shape[1]
-            active = valid.any(axis=1)  # (S,) streams with frames this round
-            self.fleet.retire(~active)
+        try:
+            for start, arr, valid in schedule.rounds(B):
+                if prof is not None:
+                    prof.open_round()
+                b = arr.shape[1]
+                active = valid.any(axis=1)  # (S,) streams with frames this round
+                self.fleet.retire(~active)
 
-            t0 = time.perf_counter() if prof is not None else 0.0
-            flat = torch.as_tensor(frames[:, start : start + b].reshape(S * b, *frames.shape[2:]),
-                                   device=self.device)
-            fp, cf = fast_pass(self.fast_forward, self.calibrate, flat,
-                               use_fused=cfg.use_fused, platt_ab=cfg.platt_ab)
-            fast_preds = fp.cpu().numpy().reshape(S, b)
-            conf = cf.cpu().numpy().reshape(S, b)
-            if prof is not None:
-                prof.add("serve", time.perf_counter() - t0)
-            t_ready = arr + t_fast  # (S, b); +inf on invalid slots
+                if prof is not None:
+                    prof.open("slice")
+                host = frames[:, start : start + b].reshape(S * b, *frames.shape[2:])
+                if prof is not None:
+                    prof.switch("h2d")
+                    prof.count("syncs")
+                flat = torch.as_tensor(host, device=self.device)
+                if prof is not None:
+                    prof.switch("fast")
+                fp, cf = fast_pass(self.fast_forward, self.calibrate, flat,
+                                   use_fused=cfg.use_fused, platt_ab=cfg.platt_ab)
+                if prof is not None:
+                    prof.switch("fast_wait")
+                    prof.count("syncs", 2)
+                fast_preds = fp.cpu().numpy().reshape(S, b)
+                conf = cf.cpu().numpy().reshape(S, b)
+                if prof is not None:
+                    prof.close()
+                t_ready = arr + t_fast  # (S, b); +inf on invalid slots
 
-            # control plane: one batched plan over every active backlog,
-            # against the slow tier's occupancy-calibrated service estimate
-            # (identical to the nominal when the pool does not batch)
-            now = np.min(arr, axis=1)  # first valid arrival (inf if none)
-            pool = self.fabric.pool
-            self.fleet.server_time = self.fabric.expected_server_time()
-            self.fleet.occupancy = float(pool.avg_batch)
-            fin = now[np.isfinite(now)]
-            self.fleet.queue_depth = pool.queue_depth(float(fin.min()) if len(fin) else 0.0)
-            batch = self.fleet.plan_all(now, active)
-            theta = batch.theta
-            cap = np.where(active, np.maximum(batch.n_offloads, 1), 0)
-            res_idx = batch.resolution  # action index per stream
+                # control plane: one batched plan over every active backlog,
+                # against the slow tier's occupancy-calibrated service estimate
+                # (identical to the nominal when the pool does not batch)
+                now = np.min(arr, axis=1)  # first valid arrival (inf if none)
+                pool = self.fabric.pool
+                self.fleet.server_time = self.fabric.expected_server_time()
+                self.fleet.occupancy = float(pool.avg_batch)
+                fin = now[np.isfinite(now)]
+                self.fleet.queue_depth = pool.queue_depth(float(fin.min()) if len(fin) else 0.0)
+                batch = self.fleet.plan_all(now, active)
+                theta = batch.theta
+                cap = np.where(active, np.maximum(batch.n_offloads, 1), 0)
+                res_idx = batch.resolution  # action index per stream
 
-            # planner-assumed and transmitted payloads come from one table;
-            # for frame actions ``+ t_dev`` and ``* srv_frac`` are no-ops
-            act = self.fleet.action_table
-            conf_gate = np.where(valid, conf, np.inf)
-            s_idx, slot_idx = select_escalations(conf_gate, theta, cap)
-            a_esc = res_idx[s_idx]
-            esc = EscalationBatch(
-                stream=s_idx, slot=slot_idx,
-                t_ready=t_ready[s_idx, slot_idx] + act.t_dev[a_esc],
-                payload=act.sizes[a_esc],
-                res=resolutions[act.res][a_esc],
-            )
-
-            # one gather on the device, one slow-tier call for every
-            # stream's escalations
-            t0 = time.perf_counter() if prof is not None else 0.0
-            if len(esc):
-                gathered = flat.index_select(
-                    0, torch.as_tensor(s_idx * b + slot_idx, device=self.device))
-                slow_preds = slow_pass_multires(self.slow_forward, gathered, esc.res).cpu().numpy()
-            else:
-                slow_preds = np.zeros(0, dtype=fast_preds.dtype)
-            if prof is not None:
-                prof.add("serve", time.perf_counter() - t0)
-
-            # fair uplink schedule (cost normalized by each stream's own
-            # cell rate), then one fabric transmit for the round
-            t0 = time.perf_counter() if prof is not None else 0.0
-            order = self.scheduler.order(esc.stream, esc.t_ready,
-                                         cost=esc.payload / self._stream_bw[esc.stream])
-            q = esc.permuted(order)
-            slow_q = slow_preds[order]
-            lands = self.fabric.transmit(q.stream, q.payload, q.t_ready,
-                                         service_scale=act.srv_frac[res_idx[q.stream]],
-                                         collect_detail=tracer is not None)
-            if prof is not None:
-                prof.add("transmit", time.perf_counter() - t0)
-            ok = lands <= arr[q.stream, q.slot] + cfg.deadline
-
-            if tracer is not None and len(q):
-                d = self.fabric.last_detail
-                tracer.record_round(
-                    stream=q.stream, slot=q.slot,
-                    arrival=arr[q.stream, q.slot], t_ready=q.t_ready,
-                    cell=d["cell"], up_start=d["up_start"], up_end=d["up_end"],
-                    replica=d["replica"], service=d["service"],
-                    batch_id=d["batch_id"], done=d["done"],
-                    land=lands, ok=ok, deadline=cfg.deadline)
-
-            t0 = time.perf_counter() if prof is not None else 0.0
-            final = fast_preds.copy()
-            final[q.stream[ok], q.slot[ok]] = slow_q[ok]
-
-            # per-stream bandwidth observations in transmission order: each
-            # reply's actual service time is subtracted, replica queueing is
-            # not (a device cannot tell it from wire time)
-            self.fleet.observe_bandwidth(
-                q.stream, q.payload,
-                transfer_seconds(lands, q.t_ready, latency=self.fabric.latency,
-                                 server_time=self.fabric.last_service_time))
-
-            # planned offloads left the device; non-escalated valid frames
-            # join their stream's backlog in slot order
-            self.fleet.consume(batch)
-            esc_mask = np.zeros((S, b), dtype=bool)
-            esc_mask[s_idx, slot_idx] = True
-            add = valid & ~esc_mask
-            add_s, _ = np.nonzero(add)
-            self.fleet.observe_frames(add_s, arr[add], conf[add].astype(np.float64))
-
-            lat = np.full((S, b), t_fast)
-            lat[q.stream[ok], q.slot[ok]] = lands[ok] - arr[q.stream[ok], q.slot[ok]]
-            lat[q.stream[~ok], q.slot[~ok]] = cfg.deadline
-            off_counts = np.bincount(q.stream[ok], minlength=S)
-            miss_counts = np.bincount(q.stream[~ok], minlength=S)
-            correct = (((final == labels[:, start : start + b]) & valid).sum(axis=1)
-                       if labels is not None else np.zeros(S, dtype=np.int64))
-            self.metrics.update_round(valid.sum(axis=1), off_counts, miss_counts,
-                                      correct, lat, valid)
-            if prof is not None:
-                prof.add("fold", time.perf_counter() - t0)
-
-            if rec is not None:
-                # cumulative counters, the planner's state as used this
-                # round, and the contention cursors after it
-                t_round = float(fin.min()) if len(fin) else np.nan
-                hist = np.zeros(rec.n_actions, dtype=np.int64)
-                np.add.at(hist, res_idx, np.where(active, batch.n_offloads, 0))
-                m, fab = self.metrics, self.fabric
-                rec.record_round(
-                    t=t_round,
-                    frames=m._frames, offloads=m._offloaded,
-                    misses=m._missed, correct=m._correct,
-                    bw_est=self.fleet.bw_est,
-                    bw_true=fab.true_bandwidth(t_round),
-                    cell_busy_s=[c.uplink.busy_seconds for c in fab.cells],
-                    cell_queued_s=[c.uplink.queued_seconds for c in fab.cells],
-                    rep_busy_s=pool.busy_seconds,
-                    rep_queued_s=pool.queued_seconds,
-                    avg_batch=pool.avg_batch,
-                    server_time=self.fleet.server_time,
-                    action_off=hist,
+                # planner-assumed and transmitted payloads come from one table;
+                # for frame actions ``+ t_dev`` and ``* srv_frac`` are no-ops
+                if prof is not None:
+                    prof.open("gate")
+                act = self.fleet.action_table
+                conf_gate = np.where(valid, conf, np.inf)
+                s_idx, slot_idx = select_escalations(conf_gate, theta, cap)
+                a_esc = res_idx[s_idx]
+                esc = EscalationBatch(
+                    stream=s_idx, slot=slot_idx,
+                    t_ready=t_ready[s_idx, slot_idx] + act.t_dev[a_esc],
+                    payload=act.sizes[a_esc],
+                    res=resolutions[act.res][a_esc],
                 )
+                if prof is not None:
+                    prof.close()
 
-            if self.round_hook is not None:
-                ok_grid = np.zeros((S, b), dtype=bool)
-                ok_grid[q.stream[ok], q.slot[ok]] = True
-                self.round_hook({
-                    "start": start,
-                    "theta": theta.copy(), "res_idx": res_idx.copy(),
-                    "cap": cap.copy(), "n_off": batch.n_offloads.copy(),
-                    "n_frames": batch.n_frames.copy(),
-                    "off_stream": batch.off_stream.copy(),
-                    "off_pos": batch.off_pos.copy(),
-                    "off_res": batch.off_res.copy(),
-                    "off_kind": batch.off_kind.copy(),
-                    "off_cut": batch.off_cut.copy(),
-                    "esc": esc_mask, "ok": ok_grid, "lat": lat.copy(),
-                    "valid": valid.copy(), "correct": np.asarray(correct).copy(),
-                    "bw_est": self.fleet.bw_est.copy(),
-                    "lengths": self.fleet.state.lengths.copy(),
-                })
+                # one gather on the device, one slow-tier call for every
+                # stream's escalations
+                if len(esc):
+                    if prof is not None:
+                        prof.open("slow")
+                        prof.count("syncs")
+                    gathered = flat.index_select(
+                        0, torch.as_tensor(s_idx * b + slot_idx, device=self.device))
+                    slow = slow_pass_multires(self.slow_forward, gathered, esc.res, profiler=prof)
+                    if prof is not None:
+                        prof.switch("slow_wait")
+                        prof.count("syncs")
+                    slow_preds = slow.cpu().numpy()
+                    if prof is not None:
+                        prof.close()
+                else:
+                    slow_preds = np.zeros(0, dtype=fast_preds.dtype)
+
+                # fair uplink schedule (cost normalized by each stream's own
+                # cell rate), then one fabric transmit for the round
+                if prof is not None:
+                    prof.open("transmit")
+                order = self.scheduler.order(esc.stream, esc.t_ready,
+                                             cost=esc.payload / self._stream_bw[esc.stream])
+                q = esc.permuted(order)
+                slow_q = slow_preds[order]
+                lands = self.fabric.transmit(q.stream, q.payload, q.t_ready,
+                                             service_scale=act.srv_frac[res_idx[q.stream]],
+                                             collect_detail=tracer is not None)
+                if prof is not None:
+                    prof.switch("fold")
+                ok = lands <= arr[q.stream, q.slot] + cfg.deadline
+                final = fast_preds.copy()
+                final[q.stream[ok], q.slot[ok]] = slow_q[ok]
+
+                # per-stream bandwidth observations in transmission order: each
+                # reply's actual service time is subtracted, replica queueing is
+                # not (a device cannot tell it from wire time)
+                self.fleet.observe_bandwidth(
+                    q.stream, q.payload,
+                    transfer_seconds(lands, q.t_ready, latency=self.fabric.latency,
+                                     server_time=self.fabric.last_service_time))
+
+                # planned offloads left the device; non-escalated valid frames
+                # join their stream's backlog in slot order
+                self.fleet.consume(batch)
+                esc_mask = np.zeros((S, b), dtype=bool)
+                esc_mask[s_idx, slot_idx] = True
+                add = valid & ~esc_mask
+                add_s, _ = np.nonzero(add)
+                self.fleet.observe_frames(add_s, arr[add], conf[add].astype(np.float64))
+
+                lat = np.full((S, b), t_fast)
+                lat[q.stream[ok], q.slot[ok]] = lands[ok] - arr[q.stream[ok], q.slot[ok]]
+                lat[q.stream[~ok], q.slot[~ok]] = cfg.deadline
+                off_counts = np.bincount(q.stream[ok], minlength=S)
+                miss_counts = np.bincount(q.stream[~ok], minlength=S)
+                correct = (((final == labels[:, start : start + b]) & valid).sum(axis=1)
+                           if labels is not None else np.zeros(S, dtype=np.int64))
+                self.metrics.update_round(valid.sum(axis=1), off_counts, miss_counts,
+                                          correct, lat, valid)
+                if prof is not None:
+                    prof.switch("hook")
+
+                if tracer is not None and len(q):
+                    d = self.fabric.last_detail
+                    tracer.record_round(
+                        stream=q.stream, slot=q.slot,
+                        arrival=arr[q.stream, q.slot], t_ready=q.t_ready,
+                        cell=d["cell"], up_start=d["up_start"], up_end=d["up_end"],
+                        replica=d["replica"], service=d["service"],
+                        batch_id=d["batch_id"], done=d["done"],
+                        land=lands, ok=ok, deadline=cfg.deadline)
+
+                if rec is not None:
+                    # cumulative counters, the planner's state as used this
+                    # round, and the contention cursors after it
+                    t_round = float(fin.min()) if len(fin) else np.nan
+                    hist = np.zeros(rec.n_actions, dtype=np.int64)
+                    np.add.at(hist, res_idx, np.where(active, batch.n_offloads, 0))
+                    m, fab = self.metrics, self.fabric
+                    rec.record_round(
+                        t=t_round,
+                        frames=m._frames, offloads=m._offloaded,
+                        misses=m._missed, correct=m._correct,
+                        bw_est=self.fleet.bw_est,
+                        bw_true=fab.true_bandwidth(t_round),
+                        cell_busy_s=[c.uplink.busy_seconds for c in fab.cells],
+                        cell_queued_s=[c.uplink.queued_seconds for c in fab.cells],
+                        rep_busy_s=pool.busy_seconds,
+                        rep_queued_s=pool.queued_seconds,
+                        avg_batch=pool.avg_batch,
+                        server_time=self.fleet.server_time,
+                        action_off=hist,
+                    )
+
+                if self.round_hook is not None:
+                    ok_grid = np.zeros((S, b), dtype=bool)
+                    ok_grid[q.stream[ok], q.slot[ok]] = True
+                    self.round_hook({
+                        "start": start,
+                        "theta": theta.copy(), "res_idx": res_idx.copy(),
+                        "cap": cap.copy(), "n_off": batch.n_offloads.copy(),
+                        "n_frames": batch.n_frames.copy(),
+                        "off_stream": batch.off_stream.copy(),
+                        "off_pos": batch.off_pos.copy(),
+                        "off_res": batch.off_res.copy(),
+                        "off_kind": batch.off_kind.copy(),
+                        "off_cut": batch.off_cut.copy(),
+                        "esc": esc_mask, "ok": ok_grid, "lat": lat.copy(),
+                        "valid": valid.copy(), "correct": np.asarray(correct).copy(),
+                        "bw_est": self.fleet.bw_est.copy(),
+                        "lengths": self.fleet.state.lengths.copy(),
+                    })
+                if prof is not None:
+                    prof.close()  # hook
+                    prof.close()  # round
+        finally:
+            if prof is not None:
+                prof.close_all()  # a round hook that raised leaves its spans open
         return self.metrics
 
     def _process_streams_torch(self, frames, labels, schedule) -> AggregateMetrics:

@@ -13,9 +13,14 @@ topologies (a degenerate 1-cell/1-replica fabric; 2 cells x 2 replicas
 with continuous batching; the same under churn): every recorder series is
 bit-equal, floats included, since both round loops are the same float64
 numpy on bit-equal confidences; the tracer's Chrome trace and miss
-attribution are equal; the profiler holds plan / serve / transmit / fold;
-and telemetry on and off give the same metrics (zero observer effect).
+attribution are equal; the profiler logs each round's spans once, inside
+their round, with ``syncs`` at 5 + k (k distinct planned resolutions)
+in a round that escalates and 3 in one that does not, and opens
+``serving.*`` ranges under ``torch.profiler``; and telemetry on and off
+give the same metrics (zero observer effect).
 """
+import collections
+import contextlib
 import json
 
 import numpy as np
@@ -38,6 +43,10 @@ from repro_torch.serving.synthetic import synthetic_streams, synthetic_tiers
 SIDES = {"jax": (jnet, jfab, jobs, jsrv, jst, jax_synthetic_tiers),
          "torch": (tnet, tfab, tobs, tsrv, tst, synthetic_tiers)}
 LIVE = (0.03125, 0.0078125)  # LinearBatch(base, per_item), float32-exact
+# the numpy round loop's spans inside each round, in loop order; SLOW_SPANS
+# only in a round that escalates
+LOOP_SPANS = ("slice", "h2d", "fast", "fast_wait", "plan", "gate", "transmit", "fold", "hook")
+SLOW_SPANS = ("slow", "slow_wait")
 
 
 # ------------------------------ recorder ----------------------------------- #
@@ -236,8 +245,9 @@ def test_engine_telemetry_bit_equal_to_reference(topology):
     assert ttr.chrome_trace() == jtr.chrome_trace()
     assert ttr.miss_attribution() == jtr.miss_attribution()
     prof = tels["torch"].profiler
-    assert {"plan", "serve", "transmit", "fold"} <= set(prof.totals)
-    assert prof.counts["plan"] == prof.counts["fold"] == 4
+    assert set(prof.totals) == set(LOOP_SPANS) | set(SLOW_SPANS)
+    assert all(prof.counts[name] == 4 for name in LOOP_SPANS)
+    assert 0 < prof.counts["slow"] == prof.counts["slow_wait"] <= 4
     assert tserver.fleet.profiler is prof
     # the recorder's last cumulative row is the end-of-run counters
     for k, v in (("frames", tm._frames), ("offloads", tm._offloaded), ("misses", tm._missed),
@@ -249,14 +259,138 @@ def test_engine_telemetry_bit_equal_to_reference(topology):
 
 
 @pytest.mark.parametrize("topology", ["degenerate", "fabric", "churn"])
-def test_zero_observer_effect(topology):
+@pytest.mark.parametrize("parts", ["all", "profile", "profile_traced"])
+def test_zero_observer_effect(topology, parts):
+    """The same metrics with every part on; with the profiler alone (the
+    spans and the counter); and with the profiler alone under a
+    ``torch.profiler``, whose ``serving.*`` ranges it then opens."""
     m_off, s_off = _run("torch", topology)
-    m_on, s_on = _run("torch", topology, tobs.Telemetry(record=True, trace=True, profile=True))
+    if parts == "all":
+        m_on, s_on = _run("torch", topology, tobs.Telemetry(record=True, trace=True, profile=True))
+    else:
+        tel = tobs.Telemetry(record=False, profile=True)
+        with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+              if parts == "profile_traced" else contextlib.nullcontext()):
+            m_on, s_on = _run("torch", topology, tel)
+        assert tel.profiler.n_rounds == 4
     assert m_off.summary() == m_on.summary()
     for k in ("_frames", "_offloaded", "_missed", "_correct"):
         np.testing.assert_array_equal(getattr(m_off, k), getattr(m_on, k))
     np.testing.assert_array_equal(s_off.fleet.bw_est, s_on.fleet.bw_est)
-    assert s_off.fabric.last_detail is None and s_on.fabric.last_detail is not None
+    assert s_off.fabric.last_detail is None
+    assert (s_on.fabric.last_detail is not None) == (parts == "all")
+
+
+# ------------------------------ spans -------------------------------------- #
+
+
+def _served_spans(topology, profiled=False):
+    """Serve a clip with the profiler alone; returns the profiler, each
+    round's hook record and, with ``profiled``, the ``torch.profiler``'s
+    events."""
+    tel = tobs.Telemetry(record=False, profile=True)
+    server = _server("torch", topology, tel)
+    hooks = []
+    server.round_hook = hooks.append
+    imgs, labels = synthetic_streams(server.n_streams, 64, seed=0)
+    if profiled:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as tp:
+            server.process_streams(imgs, labels)
+        return tel.profiler, hooks, tp.events()
+    server.process_streams(imgs, labels)
+    return tel.profiler, hooks, None
+
+
+@pytest.mark.parametrize("topology", ["degenerate", "fabric", "churn"])
+def test_each_round_logs_its_spans_once_inside_it(topology):
+    prof, hooks, _ = _served_spans(topology)
+    assert prof.n_rounds == len(hooks) == 4 and not prof._open
+    spans, self_s = prof.spans, prof.self_times()
+    roots = [i for i, sp in enumerate(spans) if sp.name == tobs.profile.ROUND]
+    assert [spans[i].round for i in roots] == [0, 1, 2, 3]
+    assert all(spans[i].parent == -1 for i in roots)
+    n_escalating = 0
+    for r, (i, hook) in enumerate(zip(roots, hooks)):
+        root = spans[i]
+        children = [sp for sp in spans if sp.parent == i]
+        escalates = bool(hook["esc"].any())
+        n_escalating += escalates
+        want = list(LOOP_SPANS[:6]) + list(SLOW_SPANS) * escalates + list(LOOP_SPANS[6:])
+        assert [sp.name for sp in children] == want, r  # each once, in loop order
+        assert all(sp.round == r for sp in children)
+        assert all(root.start <= sp.start <= sp.end <= root.end for sp in children)
+        assert all(a.end <= b.start for a, b in zip(children, children[1:]))
+        child_s = sum(sp.end - sp.start for sp in children)
+        assert self_s[i] == pytest.approx(root.end - root.start - child_s)
+        assert self_s[i] >= 0
+    assert n_escalating > 0
+    assert all(sp.parent == -1 or spans[sp.parent].name == tobs.profile.ROUND for sp in spans)
+    # the phases inside the round add to the totals, the round does not
+    assert prof.counts["slice"] == 4 and tobs.profile.ROUND not in prof.totals
+
+
+@pytest.mark.parametrize("topology", ["degenerate", "fabric", "churn"])
+def test_syncs_count_each_blocking_transfer(topology):
+    prof, hooks, _ = _served_spans(topology)
+    syncs = prof.counters["syncs"]
+    assert sorted(syncs) == [0, 1, 2, 3]
+    saw_k = set()
+    for r, hook in enumerate(hooks):
+        esc_streams = np.nonzero(hook["esc"])[0]
+        if len(esc_streams):
+            k = len(np.unique(hook["res_idx"][esc_streams]))  # frame actions: one resolution each
+            saw_k.add(k)
+            assert syncs[r] == 5 + k, (r, syncs[r], k)
+        else:
+            assert syncs[r] == 3, (r, syncs[r])
+    assert saw_k
+
+
+@pytest.mark.parametrize("topology", ["degenerate", "fabric"])
+def test_profiled_clip_holds_the_serving_ranges(topology, monkeypatch):
+    prof, hooks, events = _served_spans(topology, profiled=True)
+    got = collections.Counter(e.name for e in events if e.name.startswith(tobs.profile.RANGE_PREFIX))
+    assert got == collections.Counter(tobs.profile.RANGE_PREFIX + sp.name for sp in prof.spans)
+    assert got["serving.round"] == got["serving.slice"] == got["serving.plan"] == 4
+    # no range may read as the benchmark's own or as a kernel's
+    assert not any("calib_gate" in name or "flash_attention" in name for name in got)
+    # without a recording profiler the spans open no range
+    opened = []
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: opened.append(name))
+    prof, _, _ = _served_spans(topology)
+    assert prof.n_rounds == 4 and opened == []
+
+
+def test_profiler_spans_unit():
+    p = tobs.PhaseProfiler()
+    p.count("syncs")  # outside a round: round -1
+    p.open_round()
+    with p.phase("a"):
+        p.count("syncs", 2)
+        with p.phase("b"):
+            pass
+    p.open("c")
+    p.switch("d")
+    p.close()
+    p.close()
+    p.open_round()
+    p.open("e")
+    with pytest.raises(RuntimeError, match="open"):
+        p.reset()
+    p.close_all()
+    assert [(s.name, s.round, s.parent) for s in p.spans] == [
+        ("round", 0, -1), ("a", 0, 0), ("b", 0, 1), ("c", 0, 0), ("d", 0, 0), ("round", 1, -1), ("e", 1, 5)]
+    assert p.counters == {"syncs": {-1: 1, 0: 2}}
+    assert p.n_rounds == 2 and p.counts == {"a": 1, "b": 1, "c": 1, "d": 1, "e": 1}
+    st = p.self_times()
+    sp = p.spans
+    assert st[1] == pytest.approx((sp[1].end - sp[1].start) - (sp[2].end - sp[2].start))
+    assert st[0] == pytest.approx(sum(s.end - s.start for s in sp[:1]) - sum(
+        s.end - s.start for s in sp if s.parent == 0))
+    assert st[2] == sp[2].end - sp[2].start  # a leaf
+    assert set(p.summarize()) == {"a", "b", "c", "d", "e", "total_s"}
+    p.reset()
+    assert not p and p.spans == [] and p.counters == {} and p.n_rounds == 0
 
 
 def test_fabric_detail_equal_reference():
