@@ -14,9 +14,13 @@ then, in one process:
    each window's ``frames_per_s``, mean and p95 round;
 2. one window timed as the benchmark's traced run (the tiers' CUDA
    events, host clocks around the planner and the fabric) with the
-   spans on: each span's mean ms a round, the ``syncs`` a round, the
-   round's self time against its span, ``wall_ms`` less the round span,
-   and ``host_rest_ms`` as the benchmark computes it;
+   spans on: each span's mean ms a round, the ``syncs`` a round (on the
+   card, where the frames are staged in pinned memory and their copy
+   does not block, 4 + k in a round that escalates at k planned
+   resolutions, else 2; 5 + k and 3 where the copy blocks, as on the
+   CPU), the ``staged`` rounds a round (1 on the card), the round's self
+   time against its span, ``wall_ms`` less the round span, and
+   ``host_rest_ms`` as the benchmark computes it;
 3. profiled clips (``Bench.profile``), with the spans off, on, on, off:
    ``perfbench.trace.read``'s slice as it reads today, and read again
    without the device side of the ``serving.*`` ranges, with each idle
@@ -76,8 +80,8 @@ def window(bench, seconds: float) -> dict:
 
 
 def span_table(prof, rounds) -> dict:
-    """Mean ms a round of each span, syncs a round, and the round span
-    against the host clock of the benchmark's round marks."""
+    """Mean ms a round of each span, syncs and staged rounds a round, and
+    the round span against the host clock of the benchmark's round marks."""
     from repro_torch.obs.profile import ROUND
 
     spans, self_s = prof.spans, prof.self_times()
@@ -100,6 +104,7 @@ def span_table(prof, rounds) -> dict:
            "wait_ms": ms.get("fast_wait", 0.0) + ms.get("slow_wait", 0.0),
            "loop_ms": ms.get("gate", 0.0) + ms.get("fold", 0.0),
            "host_syncs": sum(syncs.values()) / n,
+           "staged": sum(prof.counters.get("staged", {}).values()) / n,
            "round_span_ms": round_ms, "round_self_ms": self_ms, "round_self_share": self_ms / round_ms,
            "wall_ms": statistics.fmean(walls), "wall_less_round_ms": statistics.fmean(walls) - round_ms}
     if rounds and "fast_ms" in rounds[0]:

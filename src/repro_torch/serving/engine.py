@@ -154,6 +154,48 @@ class CascadeServer:
         return self.metrics
 
 
+class FrameStage:
+    """A round's frames on their way to a CUDA device, through one host
+    buffer that every round of a replay reuses.
+
+    ``frames`` is the (S, N, ...) pool.  The buffer holds S·``batch_size``
+    frames of its dtype, pinned where ``device`` is CUDA (pinning needs it;
+    elsewhere it is plain memory); a pinned buffer comes from torch's
+    caching host allocator, so a later stage of the same size takes the
+    freed block back with no new ``cudaHostAlloc`` and no page fault.  That
+    allocator rounds the block up to a power of two and keeps it pinned
+    until ``torch._C._host_emptyCache()``: each distinct S·B·frame size
+    that one process stages holds one such block for its life.
+    ``fill`` copies round ``start``'s ``b`` frames of every stream into the
+    buffer's first S·b rows, in the layout of
+    ``frames[:, start:start+b].reshape(S*b, ...)``; ``to_device`` starts
+    their copy on the current stream and returns at once, so stream order
+    puts it before the tiers that read it.  ``fill`` first waits for the
+    previous copy to have read the buffer."""
+
+    def __init__(self, frames: np.ndarray, batch_size: int, device):
+        self.device = torch.device(device)
+        cuda = self.device.type == "cuda"
+        self.src = torch.from_numpy(frames)
+        self.buf = torch.empty((frames.shape[0] * batch_size, *frames.shape[2:]),
+                               dtype=self.src.dtype, pin_memory=cuda)
+        self.copied = torch.cuda.Event() if cuda else None
+
+    def fill(self, start: int, b: int) -> torch.Tensor:
+        if self.copied is not None:
+            self.copied.synchronize()
+        S = self.src.shape[0]
+        host = self.buf[: S * b]
+        host.view(S, b, *self.src.shape[2:]).copy_(self.src[:, start : start + b])
+        return host
+
+    def to_device(self, host: torch.Tensor) -> torch.Tensor:
+        flat = host.to(self.device, non_blocking=True)
+        if self.copied is not None:
+            self.copied.record()
+        return flat
+
+
 class MultiStreamServer:
     """N concurrent client streams sharing an edge fabric and a slow tier.
 
@@ -167,8 +209,13 @@ class MultiStreamServer:
     (the reference's keys).  ``telemetry`` (``obs.Telemetry``) adds a
     per-round recorder, a frame tracer and a profiler of the round's host
     spans (slice, h2d, fast, fast_wait, plan, gate, slow, slow_wait,
-    transmit, fold, hook) and of its blocking transfers (``syncs``);
-    ``None`` is the zero-cost path.  ``backend="torch"`` runs the round loop on
+    transmit, fold, hook), of its blocking transfers (``syncs``) and of
+    its rounds staged through pinned memory (``staged``); ``None`` is the
+    zero-cost path.  On a CUDA device each round's frames are filled into
+    one reused pinned buffer (``FrameStage``: the ``slice`` span) and copied
+    to the card without blocking (``h2d``: issuing the copy); on any other
+    device they are sliced into a new array and copied as they are.
+    ``backend="torch"`` runs the round loop on
     ``device`` (the reference's ``backend="jax"``; configurations it cannot
     express raise at construction, ``engine_torch.torch_unsupported``).
     """
@@ -270,11 +317,15 @@ class MultiStreamServer:
         # opened and closed behind ``prof is not None`` (``plan`` is
         # ``FleetRunner.plan_all``'s own); ``syncs`` counts the round's
         # blocking transfers (copies to the host, and to the device from
-        # pageable memory, which wait for the stream)
+        # pageable memory, which wait for the stream); ``staged`` counts
+        # rounds whose frames went through the pinned ``FrameStage``, whose
+        # copy to the card does not block (pinning needs CUDA: elsewhere the
+        # frames are sliced and copied as they are)
         tel = self.telemetry
         rec = tel.recorder if tel is not None else None
         tracer = tel.tracer if tel is not None else None
         prof = tel.profiler if tel is not None else None
+        stage = FrameStage(frames, B, self.device) if self.device.type == "cuda" else None
 
         try:
             for start, arr, valid in schedule.rounds(B):
@@ -286,11 +337,17 @@ class MultiStreamServer:
 
                 if prof is not None:
                     prof.open("slice")
-                host = frames[:, start : start + b].reshape(S * b, *frames.shape[2:])
+                if stage is None:
+                    host = frames[:, start : start + b].reshape(S * b, *frames.shape[2:])
+                else:
+                    host = stage.fill(start, b)
                 if prof is not None:
                     prof.switch("h2d")
-                    prof.count("syncs")
-                flat = torch.as_tensor(host, device=self.device)
+                    prof.count("syncs" if stage is None else "staged")
+                if stage is None:
+                    flat = torch.as_tensor(host, device=self.device)
+                else:
+                    flat = stage.to_device(host)
                 if prof is not None:
                     prof.switch("fast")
                 fp, cf = fast_pass(self.fast_forward, self.calibrate, flat,

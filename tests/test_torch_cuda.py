@@ -1042,6 +1042,97 @@ def test_multistream_torch_backend_defaults_to_the_card(cuda_device):
     assert metrics["cpu"].summary() == metrics[None].summary()
 
 
+@pytest.mark.cuda
+def test_multistream_stages_frames_through_one_pinned_buffer(cuda_device, monkeypatch):
+    """The numpy loop on the card fills each round's frames into a pinned
+    ``FrameStage`` and copies them without blocking.  Over a clip of five
+    rounds (the last of 8 frames) its answers, confidences, round records
+    and metrics are bit-equal to the same server with the stage's two
+    steps put back to the slice and the pageable copy; ``staged`` counts
+    one a round, ``syncs`` 4 + k with k planned resolutions escalated, else
+    2; a second server takes the first one's freed pinned block back."""
+    from repro_torch.core.netsim import Uplink, mbps
+    from repro_torch.net import EdgeFabric, ReplicaPool
+    from repro_torch.obs import Telemetry
+    from repro_torch.serving import FairScheduler, MultiStreamServer, ServeConfig
+    from repro_torch.serving import engine
+    from repro_torch.serving.synthetic import synthetic_streams, synthetic_tiers
+
+    S = 6
+    imgs, labels = synthetic_streams(S, 72, seed=3)
+    stages, outs = [], []
+
+    class Kept(engine.FrameStage):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            stages.append(self)
+
+    def logged(fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            outs[-1].append([t.cpu() for t in (out if isinstance(out, tuple) else (out,))])
+            return out
+        return call
+
+    monkeypatch.setattr(engine, "FrameStage", Kept)
+    monkeypatch.setattr(engine, "fast_pass", logged(engine.fast_pass))
+    monkeypatch.setattr(engine, "slow_pass_multires", logged(engine.slow_pass_multires))
+
+    def serve():
+        fast, slow, cal = synthetic_tiers()
+        cfg = ServeConfig(resolutions=(4, 8), acc_server=(0.7, 0.99), batch_size=16,
+                          frame_rate=32.0, deadline=0.2)
+        ups = [Uplink(bandwidth_bps=mbps(30.0), latency=0.05, server_time=cfg.server_time, seed=c)
+               for c in range(2)]
+        pool = ReplicaPool(2, np.array([cfg.server_time, cfg.server_time * 1.5]), serial=True)
+        tel = Telemetry(record=False, profile=True)
+        srv = MultiStreamServer(cfg, fast, slow, cal, None, n_streams=S,
+                                scheduler=FairScheduler("round_robin"),
+                                fabric=EdgeFabric(ups, pool, n_streams=S, placement="jsq"),
+                                telemetry=tel, device=cuda_device)
+        outs.append([])
+        recs = []
+        srv.round_hook = recs.append
+        summary = srv.process_streams(imgs, labels).summary()
+        return summary, recs, outs[-1], tel.profiler
+
+    staged = serve()
+    assert len(stages) == 1 and stages[0].buf.is_pinned()
+    assert stages[0].buf.shape == (S * 16, *imgs.shape[2:])
+    with monkeypatch.context() as m:
+        m.setattr(engine.FrameStage, "fill", lambda self, start, b: self.src.numpy()[
+            :, start : start + b].reshape(-1, *self.src.shape[2:]))
+        m.setattr(engine.FrameStage, "to_device", lambda self, host: torch.as_tensor(host, device=self.device))
+        plain = serve()
+    assert staged[0] == plain[0]
+    assert len(staged[1]) == len(plain[1]) == 5
+    for r, (a, b) in enumerate(zip(staged[1], plain[1])):
+        assert set(a) == set(b), r
+        for k in a:
+            assert np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes(), (r, k)
+    assert len(staged[2]) == len(plain[2])
+    for a, b in zip(staged[2], plain[2]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+    prof = staged[3]
+    assert prof.counters["staged"] == {r: 1 for r in range(5)}
+    saw_k = set()
+    for r, hook in enumerate(staged[1]):
+        esc_streams = np.nonzero(hook["esc"])[0]
+        k = len(np.unique(hook["res_idx"][esc_streams]))
+        saw_k.add(k)
+        assert prof.counters["syncs"][r] == (4 + k if k else 2), (r, k)
+    assert saw_k - {0}
+
+    stages.clear()
+    del staged, plain
+    torch.cuda.synchronize()
+    before = torch.cuda.host_memory_stats()["num_host_alloc"]
+    serve()
+    assert stages[0].buf.is_pinned()
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == before
+
+
 def _unet_attention_calls(cfg) -> int:
     """Flash launches of one UNet forward: a self and a cross call per
     transformer block, down (n_res_blocks a stage), mid and up

@@ -9,7 +9,9 @@ and ``fabric_snapshot.json`` in every integer field (accuracies within
 1e-12), also under degenerate batching; under live continuous batching it
 must match the JAX numpy engine round for round (``_diff.assert_round_equal``:
 integer fields exact, theta within 1e-6, bandwidth estimates within 1e-2
-relative, latencies within ``LAT_ATOL``).
+relative, latencies within ``LAT_ATOL``).  ``FrameStage``, which stages a
+round's frames for the card, fills one reused buffer with today's slice bit
+for bit (unpinned here); a CPU server slices as before and stages nothing.
 
 The whole slice at a small size: a SMOKE ResNet fast tier (int8 QDQ
 weights) and a ``deit-smoke`` slow tier, converted from the same JAX
@@ -411,7 +413,7 @@ def test_multistream_reproduces_multistream_snapshot():
     assert up.n_transfers == agg.n_offloaded + agg.n_deadline_miss
 
 
-def _fabric_server(mod, net, fab, slow_mod, S, *, batching=None, device=None):
+def _fabric_server(mod, net, fab, slow_mod, S, *, batching=None, device=None, telemetry=None):
     """``_diff.make_server``'s "fabric" topology (2 cells at 30 Mbps, 2
     serial replicas at T and 1.5 T, jsq) in module set ``mod``."""
     fast, slow, cal = (synthetic_tiers if mod is teng else jax_synthetic_tiers)()
@@ -421,7 +423,7 @@ def _fabric_server(mod, net, fab, slow_mod, S, *, batching=None, device=None):
     b = None if batching is None else batching(slow_mod)
     pool = fab.ReplicaPool(2, np.array([cfg.server_time, cfg.server_time * 1.5]),
                            serial=True, batching=b)
-    kw = dict(device=device) if mod is teng else {}
+    kw = dict(device=device, telemetry=telemetry) if mod is teng else {}
     return mod.MultiStreamServer(cfg, fast, slow, cal, None, n_streams=S,
                                  scheduler=mod.FairScheduler("round_robin"),
                                  fabric=fab.EdgeFabric(ups, pool, n_streams=S, placement="jsq"),
@@ -490,6 +492,45 @@ def test_live_batching_matches_numpy_engine_round_for_round(churn):
     assert tm.summary() == jm.summary()
     assert tm.n_offloaded > 0
     assert tsrv_.fabric.pool.avg_batch > 1.0  # real batches formed
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_frame_stage_fills_todays_slice_in_one_reused_buffer(dtype):
+    """``FrameStage``, the card's staging of a round's frames (unpinned
+    here), gives each round ``frames[:, s:s+b].reshape(S*b, ...)`` bit for
+    bit, a shorter last round too, always in the same buffer's first rows,
+    never aliasing the pool; ``to_device`` to the CPU hands over the
+    buffer's view itself."""
+    S, N, B = 3, 40, 16
+    imgs = synthetic_streams(S, N, seed=5)[0]
+    imgs = imgs if dtype is np.float32 else (np.abs(imgs) * 60).astype(dtype)
+    stage = teng.FrameStage(imgs, B, "cpu")
+    assert stage.buf.shape == (S * B, *imgs.shape[2:]) and not stage.buf.is_pinned()
+    ptr = stage.buf.data_ptr()
+    for start in (0, 16, 32, 16, 0):  # b = 16, 16, 8, then back over written rows
+        b = min(B, N - start)
+        want = imgs[:, start : start + b].reshape(S * b, *imgs.shape[2:])
+        host = stage.fill(start, b)
+        assert host.data_ptr() == ptr and host.shape == want.shape
+        assert host.numpy().dtype == dtype
+        assert host.numpy().tobytes() == want.tobytes()
+        assert not np.shares_memory(host.numpy(), imgs)
+        assert stage.to_device(host) is host
+
+
+def test_cpu_server_slices_frames_as_before(monkeypatch):
+    """On the CPU the loop makes no ``FrameStage``: no ``staged`` count,
+    and the frame copy counts among the round's ``syncs``."""
+    from repro_torch.obs import Telemetry
+
+    made = []
+    monkeypatch.setattr(teng, "FrameStage", lambda *a, **kw: made.append(a))
+    tel = Telemetry(record=False, profile=True)
+    _fabric_server(teng, tnet, tfab, tst, 4, device="cpu", telemetry=tel).process_streams(
+        *synthetic_streams(4, 40, seed=2))
+    prof = tel.profiler
+    assert made == [] and "staged" not in prof.counters
+    assert prof.n_rounds == 3 and all(v >= 3 for v in prof.counters["syncs"].values())
 
 
 def test_multistream_refuses_what_is_not_ported():
