@@ -144,6 +144,41 @@ class ViTConfig:
 
 
 @dataclass(frozen=True)
+class DINOv3Config:
+    """A DINOv3 ViT (arXiv:2508.10104): a class token and ``n_registers``
+    register tokens before the patches, no absolute position embedding but
+    an axial 2D RoPE of base ``rope_theta`` on the patch tokens' q and k,
+    q and v biases and no k bias, a SwiGLU FFN with biases, LayerScale on
+    both residual branches, and a linear head on the class token."""
+
+    name: str
+    img_res: int
+    patch: int
+    n_layers: int
+    d_model: int
+    n_heads: int
+    d_ff: int
+    n_registers: int = 4
+    rope_theta: float = 100.0
+    n_classes: int = 1000
+    family: str = "vision"
+
+    @property
+    def param_count(self) -> int:
+        """Every leaf of ``models/dinov3.py::DINOv3``, biases included."""
+        d, ff = self.d_model, self.d_ff
+        attn = 4 * d * d + 3 * d  # wqkv, wo; bq, bv, bo
+        mlp = 3 * d * ff + 2 * ff + d  # wg, wu, wd and their biases
+        per_layer = attn + mlp + 4 * d + 2 * d  # two LayerNorms, two LayerScales
+        stem = 3 * self.patch**2 * d + d
+        tokens = (1 + self.n_registers) * d
+        head = d * self.n_classes + self.n_classes
+        return per_layer * self.n_layers + stem + tokens + 2 * d + head
+
+    active_param_count = param_count
+
+
+@dataclass(frozen=True)
 class SwinConfig:
     name: str
     img_res: int

@@ -1,10 +1,10 @@
 """Shared layers (port of ``repro.models.layers``).
 
 Plain functions on tensors: the dense layer, LayerNorm and RMSNorm, partial
-rotary embeddings, the GQA head expansion, the reference's plain causal
-attention (whole and blockwise), and the GELU and SwiGLU MLPs; and the
-parameter shapes of the norms and MLPs (``norm_spec``/``mlp_spec``'s
-counterparts).  Weights are in ``F.linear``'s ``(out, in)`` layout.  The
+rotary embeddings and DINOv3's axial 2D ones, the GQA head expansion, the
+reference's plain causal attention (whole and blockwise), and the GELU and
+SwiGLU MLPs; and the parameter shapes of the norms and MLPs
+(``norm_spec``/``mlp_spec``'s counterparts).  Weights are in ``F.linear``'s ``(out, in)`` layout.  The
 ViT's attention core is ``kernels.flash_attention.ops.attention``; the language models' prefill
 attention is ``attention_core`` here, as in the reference, where it is
 plain einsums and no Pallas kernel.
@@ -63,6 +63,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, rotate_di
     x1, x2 = xr[..., :half].to(F32), xr[..., half:].to(F32)
     rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return torch.cat([rot.to(x.dtype), xp], dim=-1)
+
+
+def rope_2d_table(n_h: int, n_w: int, d_head: int, theta: float, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """DINOv3's axial 2D RoPE (arXiv:2508.10104): (cos, sin), each
+    (n_h·n_w, d_head) float32, for the patches in row-major order.  A
+    patch centre's coordinates ``c`` (y, x) are normalised to [-1, 1];
+    its angles are ``2π·c·theta^(-j/(d_head/4))``, j = 0 … d_head/4 - 1,
+    for y then for x, and that half-width table tiled twice, so that
+    ``rotate_half`` pairs dim i with dim i + d_head/2 at one angle."""
+    inv_freq = 1.0 / theta ** torch.arange(0, 1, 4 / d_head, dtype=F32, device=device)  # (d_head/4,)
+    ys = torch.arange(0.5, n_h, dtype=F32, device=device) / n_h
+    xs = torch.arange(0.5, n_w, dtype=F32, device=device) / n_w
+    coords = torch.stack(torch.meshgrid(ys, xs, indexing="ij"), dim=-1).flatten(0, 1) * 2.0 - 1.0  # (P, 2)
+    ang = (2 * math.pi * coords[:, :, None] * inv_freq[None, None, :]).flatten(1, 2).tile(2)  # (P, d_head)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope_2d(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, n_prefix: int) -> torch.Tensor:
+    """x (..., S, H, Dh), any strides -> a new contiguous tensor with the
+    last S - ``n_prefix`` tokens rotated by ``rope_2d_table``'s (cos, sin)
+    as ``x·cos + rotate_half(x)·sin`` and the first ``n_prefix`` (class and
+    register tokens) copied as they are.  The table is tiled twice, so its
+    first half serves both halves of Dh; each half is written in place:
+    one copy and four elementwise passes, whatever the leading dims."""
+    half = x.shape[-1] // 2
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    out[..., :n_prefix, :, :] = x[..., :n_prefix, :, :]
+    c, s = cos[:, None, :half].to(x.dtype), sin[:, None, :half].to(x.dtype)  # (P, 1, Dh/2): over heads
+    xp, op = x[..., n_prefix:, :, :], out[..., n_prefix:, :, :]
+    x1, x2, o1, o2 = xp[..., :half], xp[..., half:], op[..., :half], op[..., half:]
+    torch.mul(x1, c, out=o1)
+    o1.addcmul_(x2, s, value=-1.0)
+    torch.mul(x2, c, out=o2)
+    o2.addcmul_(x1, s)
+    return out
 
 
 def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -187,14 +222,17 @@ def mlp_shapes(d: int, d_ff: int, act: str) -> dict[str, Leaf]:
 def apply_mlp(p, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
     """The MLP (``layers.py:206-215``), weights in ``F.linear``'s layout.
 
-    ``swiglu``: ``wg``/``wu`` (d_ff, d), ``wd`` (d, d_ff); silu in f32, cast
-    back to x's dtype before the product with the up projection.
+    ``swiglu``: ``wg``/``wu`` (d_ff, d), ``wd`` (d, d_ff), and their biases
+    ``bg``/``bu``/``bd`` where ``p`` holds them (DINOv3's FFN; the language
+    models' have none); silu in f32, cast back to x's dtype before the
+    product with the up projection.
     ``gelu``: ``wi`` (d_ff, d), ``wo`` (d, d_ff); the reference's
     ``jax.nn.gelu(approximate=True)`` is the tanh form."""
     if act == "swiglu":
-        g = F.linear(x, p["wg"])
-        u = F.linear(x, p["wu"])
-        return F.linear(F.silu(g.to(F32)).to(x.dtype) * u, p["wd"])
+        bg, bu, bd = (p[k] if k in p else None for k in ("bg", "bu", "bd"))
+        g = F.linear(x, p["wg"], bg)
+        u = F.linear(x, p["wu"], bu)
+        return F.linear(F.silu(g.to(F32)).to(x.dtype) * u, p["wd"], bd)
     h = F.gelu(F.linear(x, p["wi"]).to(F32), approximate="tanh").to(x.dtype)
     return F.linear(h, p["wo"])
 

@@ -9,7 +9,9 @@ weights are stored in ``F.linear``'s ``(out, in)`` layout: ``wqkv``
 ``(3·H·Dh, d)`` whose output splits as (3, H, Dh), ``bqkv`` ``(3·H·Dh,)``,
 attention ``wo`` ``(d, H·Dh)``, ``mlp.wi`` ``(d_ff, d)``, ``mlp.wo``
 ``(d, d_ff)``, ``patch_embed.w`` ``(d, p·p·3)``, ``head.w`` ``(classes, d)``.
-Images arrive NHWC, as the JAX package takes them.
+Images arrive NHWC, as the JAX package takes them.  Each attention call
+sits in a ``vit.attn`` range while the serving loop is profiled
+(``obs.profile.model_range``).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.models.layers import (HEADS_OUT, LINEAR, QKV, Dense, Leaf, apply_mlp, apply_norm, flat, leaf,
                                       mlp_shapes, norm_shapes)
+from repro_torch.obs.profile import model_range
 
 F32 = torch.float32
 WEIGHTS = (".w", ".wqkv", ".wo", ".wi")  # drawn fan-in-scaled; every other leaf is constant
@@ -55,7 +58,8 @@ class Attention(nn.Module):
         # q, k, v are strided views (B, S, H, Dh) of one projection; the
         # kernel reads them in place.  This is the function the reference's
         # ``attention_core(causal=False)`` computes (``layers.py:80-130``).
-        out = attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], causal=False)
+        with model_range("vit.attn"):
+            out = attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], causal=False)
         return F.linear(out.reshape(B, S, self.n_heads * self.d_head), self.wo, self.bo)
 
 

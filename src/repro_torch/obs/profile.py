@@ -13,6 +13,11 @@ The profiler reads the host clock and never synchronizes the card, so a
 span holds device time only where the engine already waits for a result.
 Zero cost when off: the engines hold ``None`` and never touch a clock.
 
+``model_range`` gives a model's forward its own ranges (``vit.rope``,
+``vit.attn``) on the same terms: a ``record_function`` while a span holds
+a ``serving.*`` range, else a context that does nothing, so that a trace
+taken without the loop's profiler holds no range the model adds.
+
 ``aot_split`` is the counterpart of the reference's compile-vs-steady
 split: it warms a step up and captures it as a CUDA graph (the round
 engine's, ``serving/engine_torch.py``), so capture time stays apart from
@@ -21,16 +26,30 @@ the steady state.
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import NamedTuple
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["PhaseProfiler", "Span", "aot_split", "ROUND", "RANGE_PREFIX"]
+__all__ = ["PhaseProfiler", "Span", "aot_split", "model_range", "ROUND", "RANGE_PREFIX"]
 
 ROUND = "round"  # the root span of each round
 RANGE_PREFIX = "serving."  # a span's ``record_function`` range: this and its name
+_NO_RANGE = nullcontext()
+# Spans of any PhaseProfiler that hold a ``record_function`` range now.  A
+# process-wide count, as torch's own profiler state is: the engines call a
+# model through a plain ``forward(x)`` callable, which carries no profiler.
+_ranges_open = 0
+
+
+def model_range(name: str):
+    """``torch.profiler.record_function(name)`` while a ``PhaseProfiler``
+    span holds a range under a recording ``torch.profiler`` (the serving
+    loop profiled), else a reusable context that does nothing."""
+    if _ranges_open and _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_RANGE
 
 
 class Span(NamedTuple):
@@ -67,19 +86,23 @@ class PhaseProfiler:
         self._push(name, False)
 
     def _push(self, name: str, is_round: bool) -> None:
+        global _ranges_open
         rng = None
         if _autograd_profiler._is_profiler_enabled:
             rng = torch.profiler.record_function(RANGE_PREFIX + name)
             rng.__enter__()
+            _ranges_open += 1
         self._open.append((len(self.spans), name, time.perf_counter(), rng, is_round))
         self.spans.append(None)
 
     def close(self) -> None:
         """End the innermost open span and log it."""
+        global _ranges_open
         t1 = time.perf_counter()
         i, name, t0, rng, is_round = self._open.pop()
         if rng is not None:
             rng.__exit__(None, None, None)
+            _ranges_open -= 1
         self.spans[i] = Span(name, self._round, self._open[-1][0] if self._open else -1, t0, t1)
         if is_round:
             self._round = -1
