@@ -6,12 +6,13 @@
 Needs a CUDA GPU, the CUDA toolkit (``nvcc``) and this checkout's ``src/``;
 without them it exits non-zero before printing any result.  Phases:
 
-  1. card: ``nvidia-smi`` name and power limit; build the port's four
+  1. card: ``nvidia-smi`` name and power limit; build the port's five
      kernels, one ``nvcc`` per source, all started together; count the
      tensor-core instructions of the flash-attention kernels in the SASS,
      the int8-matmul kernel's IMMA and PRMT, the int8-KV decode
-     kernel's I2F (none allowed), PRMT and HMMA, and the calib-gate
-     kernel's 128-bit loads and cluster barriers; print the int8 matmul's
+     kernel's I2F (none allowed), PRMT and HMMA, the calib-gate
+     kernel's 128-bit loads and cluster barriers, and the conv epilogue's
+     FMUL, FADD and FFMA (none allowed); print the int8 matmul's
      and the decode kernel's launch plans (tiles, splits, registers,
      blocks a SM, cp.async stages, bytes in flight);
   2. each kernel against its plain PyTorch version on the card, at the
@@ -21,10 +22,15 @@ without them it exits non-zero before printing any result.  Phases:
      split plan), with times
      (and, for attention, ``scaled_dot_product_attention``'s, for the int8
      matmul ``torch._int_mm``'s and, for the int8-KV decode, SDPA's on a
-     bf16 cache dequantized beforehand, as yardsticks);
+     bf16 cache dequantized beforehand, as yardsticks); the conv epilogue
+     bit-equal at ResNet-50's 20 call kinds at 128 frames, timed against
+     its bytes bound and the eager sequence it replaces;
   3. path 1: ``CascadeServer(use_fused=True)`` serving 256 synthetic
      224 px frames with two full-width ResNet-50 tiers (random weights from
-     seeds; the fast tier int8 through ``qdq_tree``);
+     seeds; the fast tier int8 through ``qdq_tree``), after one fast pass
+     at 128 frames profiled (53 conv-epilogue launches; the elementwise
+     kernels left listed) and timed with the kernel and with the plain
+     epilogue in turn (the logits of both bit-equal);
      3b. path 2: the same server and stream with a DeiT-B slow tier, whose
      every attention launches the flash-attention kernel.
      3c. path 3: the slow tier's f(batch) sweep on the card (the int8-matmul
@@ -91,8 +97,10 @@ without them it exits non-zero before printing any result.  Phases:
      checkpoint every 4: a run that crashes at step 6 and restarts from
      its checkpoint ends bit-equal to an uninterrupted one (cuDNN
      deterministic); (c) ``lm_loss`` at StableLM-12B FULL's widths cut to
-     2 layers, bf16, 2 x 4096 tokens in two micro-batches, 3 steps.  No
-     kernel runs under autograd: each wrapper raises there.
+     2 layers, bf16, 2 x 4096 tokens in two micro-batches, 3 steps.  Of
+     the kernels only the conv epilogue runs under autograd, through its
+     dispatcher's ``ConvEpilogue`` (a closed-form backward); each other
+     wrapper raises there.
      3k. path 11, the scale scaffolding: (a) the analytic dry run of all 40
      (arch x shape) pairs on the (16, 16) and (2, 16, 16) production
      meshes, counted on the meta device (72 records ok, the 8 ``long_500k``
@@ -103,7 +111,10 @@ without them it exits non-zero before printing any result.  Phases:
      the card equal to its meta count (12 flash-attention launches a DeiT-B,
      ViT-S/16 or DiT-B/2 step, none of any kernel in the others).
      Each path's kernel launch counts are set to 0 just before its run and
-     read just after; then the same stream (paths 4 and 8: 8 more decode
+     read just after (the conv epilogue's over the whole path, against the
+     calls its ResNet forwards on the card owe: one a conv, 53 a ResNet-50
+     forward, none in paths 4 and 8; some under autograd in paths 10 and
+     11); then the same stream (paths 4 and 8: 8 more decode
      steps; path 5: the split fleet; path 6: the telemetry run, one cbo
      planning call at 131,072 streams; path 7: the torch run, and 8 rounds
      at 100,000 streams) runs again under ``torch.profiler`` for the
@@ -132,6 +143,7 @@ Any failed check raises, and the script exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -380,6 +392,51 @@ class TimedTier:
         return [s.elapsed_time(e) for s, e in self.events]
 
 
+class EpilogueTally:
+    """The conv-epilogue kernel's launches in each path against the calls
+    its ResNet forwards on the card owe: one a ``Conv`` (53 a ResNet-50
+    forward), counted by wrapping ``ResNet.forward`` (a forward of 0 frames
+    owes none; those whose output autograd records are counted apart).
+    ``path`` zeroes the kernel's ``launches`` and the tally just before the
+    path and checks them just after; ``paths`` keeps each path's launches."""
+
+    def __init__(self, ce_kernel):
+        from repro_torch.models import resnet
+
+        self.kernel = ce_kernel.conv_epilogue
+        self.forwards = self.owed = self.owed_grad = 0
+        self.paths: dict[str, int] = {}
+        forward = resnet.ResNet.forward
+
+        def tallied(model, images):
+            out = forward(model, images)
+            if images.is_cuda and images.shape[0] > 0:
+                n = sum(isinstance(m, resnet.Conv) for m in model.modules())
+                self.forwards += 1
+                self.owed += n
+                self.owed_grad += n if out.grad_fn is not None else 0
+            return out
+
+        resnet.ResNet.forward = tallied
+
+    @contextlib.contextmanager
+    def path(self, label: str, forwards: int | None = None, under_grad: bool = False):
+        """``forwards``: the ResNet forwards on the card the path must make;
+        ``under_grad``: some of them must be recorded by autograd."""
+        self.kernel.launches = 0
+        self.forwards = self.owed = self.owed_grad = 0
+        yield
+        launches = self.kernel.launches
+        check(launches == self.owed, f"{label}: conv_epilogue launched {launches} times; its {self.forwards}"
+              f" ResNet forwards on the card owe {self.owed} calls")
+        check(forwards is None or self.forwards == forwards,
+              f"{label}: {self.forwards} ResNet forwards on the card, expected {forwards}")
+        check(not under_grad or self.owed_grad > 0, f"{label}: no ResNet forward on the card under autograd")
+        self.paths[label] = launches
+        print(f"  {label}: conv_epilogue launched {launches} times, the calls of {self.forwards} ResNet forwards"
+              f" on the card ({self.owed_grad} of the calls under autograd)")
+
+
 def build_phase(libraries) -> None:
     """Phase 1: build every kernel's library, one ``nvcc`` per source
     started together, and show what ``ptxas`` made."""
@@ -534,6 +591,166 @@ def calib_sass(cg_kernel) -> dict[str, dict[str, int]]:
         check(all(n > 0 for n in c.values()),
               f"calib_gate {name} lacks 128-bit loads or the cluster barrier, so it is not the designed kernel: {c}")
     return counts
+
+
+def ce_sass(ce_kernel) -> dict[str, dict[str, int]]:
+    """Phase 1: no instantiation of the conv-epilogue kernel contracts the
+    affine into an FFMA (the eager code rounds the product and the sum
+    apart): count FFMA, FMUL and FADD per instantiation (dtype, residual)
+    and fail on any FFMA or on an instantiation without its FMUL and FADD."""
+    import re
+
+    ops = ("FFMA", "FMUL", "FADD")
+    dtypes = {"0": "f32", "1": "bf16", "2": "f16"}
+    counts = {}
+    for fn, c in sass_counts(ce_kernel.LIBRARY, ops).items():
+        m = re.search(r"conv_epilogue_kernelILi(\d)ELb([01])E", fn)
+        counts[f"{dtypes[m.group(1)]}{' res' if m.group(2) == '1' else ''}" if m else fn] = c
+    print("  cuobjdump -sass conv_epilogue, per instantiation:",
+          "; ".join(f"{k}: " + " ".join(f"{op} {n}" for op, n in v.items()) for k, v in sorted(counts.items())))
+    check(len(counts) == 6, f"conv_epilogue: {len(counts)} kernel instantiations")
+    for name, c in counts.items():
+        check(c["FFMA"] == 0 and c["FMUL"] > 0 and c["FADD"] > 0,
+              f"conv_epilogue {name} contracts the affine into FFMA or lacks its FMUL and FADD: {c}")
+    return counts
+
+
+def resnet50_epilogue_calls(N: int) -> list:
+    """Every conv-epilogue call of one ResNet-50 FULL forward at N frames,
+    in call order, recorded on meta: (conv, acc shape, with a residual,
+    act, pad, fill)."""
+    import torch
+
+    from repro_torch.configs.resnet_50 import FULL
+    from repro_torch.kernels.conv_epilogue.ref import conv_epilogue_ref
+    from repro_torch.models import resnet
+
+    calls = []
+
+    def record(acc, scale, bias, idn=None, *, act, pad=(0, 0, 0, 0), fill=0.0):
+        calls.append((tuple(acc.shape), idn is not None, act, tuple(pad), fill))
+        return conv_epilogue_ref(acc, scale, bias, idn, act=act, pad=pad, fill=fill)
+
+    names = ["stem"]
+    for i, dep in enumerate(FULL.depths):
+        for b in range(dep):
+            names += [f"stage{i}.b{b}.{c}" for c in ("c1", "c2", *(("proj",) if b == 0 else ()), "c3")]
+    model = resnet.ResNet(FULL, device="meta")
+    orig, resnet.conv_epilogue = resnet.conv_epilogue, record
+    try:
+        with torch.no_grad():
+            model(torch.empty(N, FULL.img_res, FULL.img_res, 3, device="meta"))
+    finally:
+        resnet.conv_epilogue = orig
+    check(len(calls) == len(names) == 53, f"ResNet-50 made {len(calls)} epilogue calls")
+    return [(name, *call) for name, call in zip(names, calls)]
+
+
+def conv_epilogue_bound(shape, residual, pad, elem_bytes):
+    """Least time (ms) of one conv-epilogue call: acc (and idn) read once,
+    scale and bias once, the padded output written once, over 3.35 TB/s
+    (``kernels/cost.py``'s formula)."""
+    from repro_torch.kernels.cost import conv_epilogue_cost
+
+    return conv_epilogue_cost(*shape, pad, elem_bytes, residual)[1] / HBM_BYTES_PER_S * 1e3
+
+
+def conv_epilogue_phase(torch, ce_kernel, conv_epilogue_ref):
+    """Phase 2: the conv epilogue at each of ResNet-50 FULL's 20 call kinds
+    at 128 frames (the four stages' shapes), float32: the kernel bit-equal
+    to its plain version on the card; the device time of the kernel and of
+    the eager sequence it replaces (the plain version: the affine's two
+    broadcast passes, the ReLU or the residual add and its ReLU, and the
+    pad, each its own kernel), against the bytes bound.  Then one forward's
+    53 calls summed."""
+    calls = resnet50_epilogue_calls(128)
+    kinds, rows = {}, []
+    for name, *kind in calls:
+        kinds.setdefault(tuple(kind), []).append(name)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    print("conv_epilogue vs the eager sequence at ResNet-50 FULL's call kinds, 128 frames, float32; 'device' is"
+          " the profiler's kernel time per call, the share is the bytes bound over the kernel's time:")
+    for (shape, residual, act, pad, fill), names in kinds.items():
+        acc = torch.randn(shape, generator=g, device="cuda")
+        idn = torch.randn(shape, generator=g, device="cuda") if residual else None
+        scale = torch.rand(shape[1], generator=g, device="cuda") + 0.5
+        bias = torch.randn(shape[1], generator=g, device="cuda") * 0.1
+        with torch.inference_mode():
+            got = ce_kernel.conv_epilogue(acc, scale, bias, idn, act=act, pad=pad, fill=fill)
+            want = conv_epilogue_ref(acc, scale, bias, idn, act=act, pad=pad, fill=fill)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"conv_epilogue {names[0]} {shape}: not bit-equal to the plain version")
+            dev = device_ms(lambda: ce_kernel.conv_epilogue(acc, scale, bias, idn, act=act, pad=pad, fill=fill))
+            plain = device_ms(lambda: conv_epilogue_ref(acc, scale, bias, idn, act=act, pad=pad, fill=fill))
+        bound = conv_epilogue_bound(shape, residual, pad, 4)
+        share = "not measured" if dev is None else f"{bound / dev:.1%}"
+        rows.append(dict(convs=names, shape=shape, residual=residual, pad=pad, ms=dev, plain_ms=plain,
+                         bound_ms=bound, n=len(names)))
+        print(f"  {names[0]:16s} x{len(names):2d} {str(shape):22s} {'res ' if residual else ''}pad {pad}"
+              f" kernel {_us(dev)} ({share} of bound) | eager {_us(plain)} | bound {_us(bound)}")
+        del acc, idn, got, want
+    whole = {k: (None if any(r[k] is None for r in rows) else sum(r[k] * r["n"] for r in rows))
+             for k in ("ms", "plain_ms", "bound_ms")}
+    print(f"  one forward's 53 calls at 128 frames: kernel {_us(whole['ms'])} | eager {_us(whole['plain_ms'])}"
+          f" | bound {_us(whole['bound_ms'])}")
+    return rows, whole
+
+
+def fast_pass_kernels(fast, frames, n: int = 128):
+    """Path 1: one fast pass of ResNet-50 FULL at ``n`` frames under the
+    profiler (after a warm pass): every device kernel by name (launches,
+    ms); exactly 53 conv-epilogue launches, and the ``at::native``
+    elementwise kernels left listed (the input permute and pad, the pool,
+    the head's mean are expected).  Then the fast pass with the kernel and
+    with the plain epilogue in turn (kernel, eager, kernel, eager: the
+    profiler's device time and CUDA events a call), and the logits of both
+    bit-equal."""
+    import torch
+
+    from repro_torch.core.cascade import fast_pass
+    from repro_torch.kernels.conv_epilogue.ref import conv_epilogue_ref
+    from repro_torch.models import resnet
+
+    x = torch.as_tensor(frames[:n], device="cuda")
+
+    def one():
+        fast_pass(fast, None, x, use_fused=True, platt_ab=PLATT)
+
+    with torch.inference_mode():
+        one()
+        torch.cuda.synchronize()
+        events, wall_ms = _profile(one, 1, host_ops=False)
+    events = sorted(events, key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    epi = [e for e in events if "conv_epilogue" in e.key]
+    epi_ms = sum(e.self_device_time_total for e in epi) / 1e3
+    left = [e for e in events if "at::native" in e.key and "elementwise" in e.key]
+    print(f"  one fast pass at {n} frames, traced: device {total:.3f} ms over {wall_ms:.3f} ms wall;"
+          f" conv_epilogue {sum(e.count for e in epi)} launches, {epi_ms:.3f} ms")
+    for e in events:
+        print(f"    {e.count:3d} x {e.self_device_time_total / 1e3:8.3f} ms  {e.key[:110]}")
+    print("  at::native elementwise kernels left:", "; ".join(f"{e.key[:80]} x{e.count}" for e in left) or "none")
+    check(sum(e.count for e in epi) == 53, f"one fast pass launched conv_epilogue {sum(e.count for e in epi)} times")
+
+    kernel = resnet.conv_epilogue
+    try:
+        for label, epilogue in (("kernel", kernel), ("eager", conv_epilogue_ref)) * 2:
+            resnet.conv_epilogue = epilogue
+            with torch.inference_mode():
+                dev = device_ms(one, iters=5)
+                ev = cuda_ms(one, iters=20, warmup=3)
+            print(f"  fast pass at {n} frames, {label} epilogue: device {_us(dev)}, events {ev:.3f} ms a call")
+        with torch.inference_mode():
+            resnet.conv_epilogue = kernel
+            a = fast(x)
+            resnet.conv_epilogue = conv_epilogue_ref
+            b = fast(x)
+    finally:
+        resnet.conv_epilogue = kernel
+    same = torch.equal(a.view(torch.int32), b.view(torch.int32))
+    print(f"  logits at {n} frames, kernel against the plain epilogue: bit-equal {same}")
+    check(same, "the fast tier's logits with the kernel differ from the plain epilogue's")
+    return total, epi, left
 
 
 def calib_gate_cases(torch):
@@ -3054,6 +3271,8 @@ def main() -> int:
     from repro_torch.configs.resnet_50 import FULL
     from repro_torch.core.cascade import fast_pass
     from repro_torch.data.video import VideoDataConfig, make_dataset
+    from repro_torch.kernels.conv_epilogue import kernel as ce_kernel
+    from repro_torch.kernels.conv_epilogue.ref import conv_epilogue_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.fused_calib_gate import kernel as cg_kernel
@@ -3073,15 +3292,18 @@ def main() -> int:
         print(f"phase {name}: {now - clock[0]:.2f} s")
         clock[0] = now
 
+    tally = EpilogueTally(ce_kernel)
+
     # ---- 1. card and build ------------------------------------------------ #
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
-    build_phase([cg_kernel.LIBRARY, fa_kernel.LIBRARY, i8_kernel.LIBRARY, kv_kernel.LIBRARY])
+    build_phase([cg_kernel.LIBRARY, fa_kernel.LIBRARY, i8_kernel.LIBRARY, kv_kernel.LIBRARY, ce_kernel.LIBRARY])
     flash_sass(fa_kernel.LIBRARY)
     int8_sass(i8_kernel)
     kv_sass(kv_kernel)
     calib_sass(cg_kernel)
+    ce_sass(ce_kernel)
     phase_done("1 (build)")
 
     # ---- 2. kernels vs plain versions ------------------------------------- #
@@ -3089,6 +3311,7 @@ def main() -> int:
     fa_rows, fa_err = flash_phase(torch, fa_kernel.flash_attention, attention_ref)
     i8_rows, i8_err = int8_phase(torch, i8_kernel, i8_ref)
     kv_rows, kv_err = kv_phase(torch, kv_kernel, decode_attention_ref)
+    ce_rows, ce_whole = conv_epilogue_phase(torch, ce_kernel, conv_epilogue_ref)
     phase_done("2 (kernels vs plain versions)")
 
     # ---- 3. path 1: ResNet-50 slow tier ----------------------------------- #
@@ -3102,12 +3325,14 @@ def main() -> int:
     check(frames.shape == (N_FRAMES, 224, 224, 3), f"frames {frames.shape}")
     print(f"set-up: weights and {N_FRAMES} frames {time.perf_counter() - t0:.2f} s")
     warm_up("path 1", fast, slow, frames)
+    fast_pass_kernels(fast, frames)
     n_batches = -(-N_FRAMES // BATCH)
-    serve_phase("path 1, ResNet-50 FULL fast and slow tiers", fast, slow, frames, labels,
-                {"calib_gate": (cg_kernel.calib_gate, n_batches),
-                 "flash_attention": (fa_kernel.flash_attention, 0),
-                 "int8_matmul": (i8_kernel.int8_matmul, 0),
-                 "int8_kv_decode": (kv_kernel.int8_kv_decode, 0)})
+    with tally.path("path 1"):
+        serve_phase("path 1, ResNet-50 FULL fast and slow tiers", fast, slow, frames, labels,
+                    {"calib_gate": (cg_kernel.calib_gate, n_batches),
+                     "flash_attention": (fa_kernel.flash_attention, 0),
+                     "int8_matmul": (i8_kernel.int8_matmul, 0),
+                     "int8_kv_decode": (kv_kernel.int8_kv_decode, 0)})
     phase_done("3 (path 1)")
 
     # ---- 3b. path 2: DeiT-B slow tier ------------------------------------- #
@@ -3115,13 +3340,14 @@ def main() -> int:
     deit = ViT(DEIT_B, generator=torch.Generator().manual_seed(1), device="cuda")
     print(f"set-up: DeiT-B FULL weights ({sum(p.numel() for p in deit.parameters())} parameters)"
           f" {time.perf_counter() - t0:.2f} s")
-    warm_up("path 2", fast, deit, frames)
-    serve_phase("path 2, ResNet-50 FULL fast tier, DeiT-B FULL slow tier", fast, deit,
-                frames, labels,
-                {"calib_gate": (cg_kernel.calib_gate, n_batches),
-                 "flash_attention": (fa_kernel.flash_attention, DEIT_B.n_layers * n_batches),
-                 "int8_matmul": (i8_kernel.int8_matmul, 0),
-                 "int8_kv_decode": (kv_kernel.int8_kv_decode, 0)})
+    with tally.path("path 2"):
+        warm_up("path 2", fast, deit, frames)
+        serve_phase("path 2, ResNet-50 FULL fast tier, DeiT-B FULL slow tier", fast, deit,
+                    frames, labels,
+                    {"calib_gate": (cg_kernel.calib_gate, n_batches),
+                     "flash_attention": (fa_kernel.flash_attention, DEIT_B.n_layers * n_batches),
+                     "int8_matmul": (i8_kernel.int8_matmul, 0),
+                     "int8_kv_decode": (kv_kernel.int8_kv_decode, 0)})
     phase_done("3b (path 2)")
 
     # ---- 3c. path 3: f(batch) sweep, multi-stream fabric ------------------ #
@@ -3132,70 +3358,80 @@ def main() -> int:
     ms_frames = data["frames"].reshape(N_STREAMS, STREAM_FRAMES, *data["frames"].shape[1:])
     ms_labels = data["labels"].reshape(N_STREAMS, STREAM_FRAMES)
     print(f"set-up: {n_ms} frames ({ms_frames.nbytes / 1e6:.0f} MB) {time.perf_counter() - t0:.2f} s")
-    warm_up("path 3", fast, deit, data["frames"], n_fast=N_STREAMS * BATCH, n_slow=N_STREAMS * BATCH)
-    launches, ms_fabric = multistream_phase(fast, deit, ms_frames, ms_labels,
-                                 {"calib_gate": cg_kernel.calib_gate,
-                                  "flash_attention": fa_kernel.flash_attention,
-                                  "int8_matmul": i8_kernel.int8_matmul,
-                                  "int8_kv_decode": kv_kernel.int8_kv_decode}, DEIT_B.n_layers)
+    with tally.path("path 3"):
+        warm_up("path 3", fast, deit, data["frames"], n_fast=N_STREAMS * BATCH, n_slow=N_STREAMS * BATCH)
+        launches, ms_fabric = multistream_phase(fast, deit, ms_frames, ms_labels,
+                                                {"calib_gate": cg_kernel.calib_gate,
+                                                 "flash_attention": fa_kernel.flash_attention,
+                                                 "int8_matmul": i8_kernel.int8_matmul,
+                                                 "int8_kv_decode": kv_kernel.int8_kv_decode}, DEIT_B.n_layers)
     check(launches["int8_kv_decode"] == 0,
           f"path 3 launched int8_kv_decode {launches['int8_kv_decode']} times")
     phase_done("3c (path 3)")
 
     # ---- 3d. path 4: StableLM-12B prefill and int8-KV decode --------------- #
-    lm_launches = lm_phase({"calib_gate": cg_kernel.calib_gate, "flash_attention": fa_kernel.flash_attention,
-                            "int8_matmul": i8_kernel.int8_matmul,
-                            "int8_kv_decode": kv_kernel.int8_kv_decode})
+    with tally.path("path 4", forwards=0):
+        lm_launches = lm_phase({"calib_gate": cg_kernel.calib_gate, "flash_attention": fa_kernel.flash_attention,
+                                "int8_matmul": i8_kernel.int8_matmul,
+                                "int8_kv_decode": kv_kernel.int8_kv_decode})
     phase_done("3d (path 4)")
 
     # ---- 3e. path 5: Table I calibrators, §V replay, split fleet ---------- #
-    eval_launches = evaluation_phase(fast, deit, ms_frames, ms_labels,
-                                     {"calib_gate": cg_kernel.calib_gate,
-                                      "flash_attention": fa_kernel.flash_attention,
-                                      "int8_matmul": i8_kernel.int8_matmul,
-                                      "int8_kv_decode": kv_kernel.int8_kv_decode}, DEIT_B.n_layers)
+    with tally.path("path 5"):
+        eval_launches = evaluation_phase(fast, deit, ms_frames, ms_labels,
+                                         {"calib_gate": cg_kernel.calib_gate,
+                                          "flash_attention": fa_kernel.flash_attention,
+                                          "int8_matmul": i8_kernel.int8_matmul,
+                                          "int8_kv_decode": kv_kernel.int8_kv_decode}, DEIT_B.n_layers)
     phase_done("3e (path 5)")
 
     # ---- 3f. path 6: telemetry on path 3's fleet, the planner on the card -- #
-    tel_launches = telemetry_phase(fast, deit, ms_frames, ms_labels, ms_fabric,
-                                   {"calib_gate": cg_kernel.calib_gate,
-                                    "flash_attention": fa_kernel.flash_attention,
-                                    "int8_matmul": i8_kernel.int8_matmul,
-                                    "int8_kv_decode": kv_kernel.int8_kv_decode}, DEIT_B.n_layers)
-    planner_phase()
+    with tally.path("path 6"):
+        tel_launches = telemetry_phase(fast, deit, ms_frames, ms_labels, ms_fabric,
+                                       {"calib_gate": cg_kernel.calib_gate,
+                                        "flash_attention": fa_kernel.flash_attention,
+                                        "int8_matmul": i8_kernel.int8_matmul,
+                                        "int8_kv_decode": kv_kernel.int8_kv_decode}, DEIT_B.n_layers)
+        planner_phase()
     phase_done("3f (path 6)")
 
     # ---- 3g. path 7: the fleet round on the card, one graph a round -------- #
-    eng_launches = round_engine_phase(fast, deit, ms_frames, ms_labels, ms_fabric,
-                                      {"calib_gate": cg_kernel.calib_gate,
-                                       "flash_attention": fa_kernel.flash_attention,
-                                       "int8_matmul": i8_kernel.int8_matmul,
-                                       "int8_kv_decode": kv_kernel.int8_kv_decode}, DEIT_B.n_layers)
-    engine_bench_phase()
+    with tally.path("path 7"):
+        eng_launches = round_engine_phase(fast, deit, ms_frames, ms_labels, ms_fabric,
+                                          {"calib_gate": cg_kernel.calib_gate,
+                                           "flash_attention": fa_kernel.flash_attention,
+                                           "int8_matmul": i8_kernel.int8_matmul,
+                                           "int8_kv_decode": kv_kernel.int8_kv_decode}, DEIT_B.n_layers)
+        engine_bench_phase()
     phase_done("3g (path 7)")
 
     # ---- 3h. path 8: DeepSeek-V2-Lite-16B (MLA, MoE) and Arctic-480B ------ #
-    zoo_launches = zoo_phase({"calib_gate": cg_kernel.calib_gate, "flash_attention": fa_kernel.flash_attention,
-                              "int8_matmul": i8_kernel.int8_matmul, "int8_kv_decode": kv_kernel.int8_kv_decode})
+    with tally.path("path 8", forwards=0):
+        zoo_launches = zoo_phase({"calib_gate": cg_kernel.calib_gate, "flash_attention": fa_kernel.flash_attention,
+                                  "int8_matmul": i8_kernel.int8_matmul, "int8_kv_decode": kv_kernel.int8_kv_decode})
     phase_done("3h (path 8)")
 
     # ---- 3i. path 9: Swin-B slow tier, DiT-B/2 and UNet-SDXL denoise calls -- #
-    diff_launches = diffusion_phase(fast, frames, labels,
-                                    {"calib_gate": cg_kernel.calib_gate, "flash_attention": fa_kernel.flash_attention,
-                                     "int8_matmul": i8_kernel.int8_matmul,
-                                     "int8_kv_decode": kv_kernel.int8_kv_decode})
+    with tally.path("path 9"):
+        diff_launches = diffusion_phase(fast, frames, labels,
+                                        {"calib_gate": cg_kernel.calib_gate,
+                                         "flash_attention": fa_kernel.flash_attention,
+                                         "int8_matmul": i8_kernel.int8_matmul,
+                                         "int8_kv_decode": kv_kernel.int8_kv_decode})
     phase_done("3i (path 9)")
 
     # ---- 3j. path 10: the paper's stack trained, the Trainer, lm_loss ------ #
     counted = {"calib_gate": cg_kernel.calib_gate, "flash_attention": fa_kernel.flash_attention,
                "int8_matmul": i8_kernel.int8_matmul, "int8_kv_decode": kv_kernel.int8_kv_decode}
-    train_launches = stack_phase(counted)
-    for got in (trainer_phase(frames, labels, counted), lm_train_phase(counted)):
-        train_launches = {name: train_launches[name] + got[name] for name in counted}
+    with tally.path("path 10", under_grad=True):
+        train_launches = stack_phase(counted)
+        for got in (trainer_phase(frames, labels, counted), lm_train_phase(counted)):
+            train_launches = {name: train_launches[name] + got[name] for name in counted}
     phase_done("3j (path 10)")
 
     # ---- 3k. path 11: the dry run, analytic and on the card ---------------- #
-    scale_launches = scale_phase(counted)
+    with tally.path("path 11", under_grad=True):
+        scale_launches = scale_phase(counted)
     phase_done("3k (path 11)")
 
     # ---- 4. card against CPU ---------------------------------------------- #
@@ -3297,7 +3533,12 @@ def main() -> int:
                     + train_launches["int8_kv_decode"] + scale_launches["int8_kv_decode"], max_abs_err=kv_err,
                     ms=kv_row["ms"], plain_ms=kv_row["plain_ms"],
                     bound_ms=kv_row["bound_ms"], bound_by=kv_row["bound_by"],
-                    library_ms=kv_row["library_ms"])]
+                    library_ms=kv_row["library_ms"]),
+               dict(name="conv_epilogue", route="cuda",
+                    source="src/repro_torch/kernels/conv_epilogue/csrc/conv_epilogue.cu",
+                    replaces=None, launches=sum(tally.paths.values()), max_abs_err=0.0,
+                    ms=ce_whole["ms"], plain_ms=ce_whole["plain_ms"], bound_ms=ce_whole["bound_ms"],
+                    bound_by="bytes", library_ms=None)]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -54,6 +54,17 @@ def decode_cost(B: int, S: int, KH: int, G: int, D: int, q_bytes: int) -> tuple[
     return 4 * B * KH * G * S * D, 2 * B * S * KH * D + 2 * B * S * 4 + 2 * B * KH * G * D * q_bytes
 
 
+def conv_epilogue_cost(N: int, C: int, H: int, W: int, pad: tuple[int, int, int, int],
+                       elem_bytes: int, residual: bool) -> tuple[int, int]:
+    """0 operations, as ``torch.utils.flop_counter`` counts the eager
+    affine, add and ReLU it replaces (so the card counts what ``meta``
+    does); acc (and idn) read once, scale and bias once, the padded output
+    written once."""
+    top, bottom, left, right = pad
+    n_out = N * C * (H + top + bottom) * (W + left + right)
+    return 0, N * C * H * W * elem_bytes * (2 if residual else 1) + 8 * C + n_out * elem_bytes
+
+
 _NOT_COUNTED = contextlib.nullcontext()
 
 

@@ -9,8 +9,13 @@ PyTorch's layouts (conv OIHW, head ``(classes, features)``).
 
 ``"SAME"`` padding in XLA is asymmetric for stride 2 (the extra row and
 column go at the end), which a symmetric ``padding=`` would shift: every
-conv and the max-pool pad explicitly with the split ``layers._same_pad``
-computes from the input size.
+conv and the max-pool take an input padded explicitly with the split
+``layers._same_pad`` computes from the input size.  Each conv's output
+goes through one epilogue (``kernels/conv_epilogue``: the frozen-BN
+affine, the block's residual, the ReLU, and the pad its consumer needs,
+so the 3 x 3 conv and the max-pool read their inputs already padded); on
+the card that is one hand-written kernel a conv (under autograd too, with
+a closed-form backward), on the CPU the eager sequence.
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ from torch import nn
 
 from repro_torch.configs.base import ResNetConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import F32, HWIO, LINEAR, Dense, Leaf, _pad_same, leaf, norm_shapes
+from repro_torch.kernels.conv_epilogue.ops import conv_epilogue
+from repro_torch.models.layers import F32, HWIO, LINEAR, Dense, Leaf, _pad_same, _same_pad, leaf, norm_shapes
 
 
 def _conv_shapes(cin: int, cout: int, k: int) -> dict[str, Leaf]:
@@ -53,7 +59,8 @@ def resnet_shapes(cfg: ResNetConfig) -> dict[str, Leaf]:
 
 
 class Conv(nn.Module):
-    """SAME conv + frozen-BN affine (+ ReLU)."""
+    """Conv + frozen-BN affine (+ residual) (+ ReLU) (+ the consumer's SAME
+    pad); ``act`` is the ReLU last, after the residual where one is given."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, act: bool = True):
         super().__init__()
@@ -62,12 +69,16 @@ class Conv(nn.Module):
         self.scale = nn.Parameter(torch.ones(cout))
         self.bias = nn.Parameter(torch.zeros(cout))
 
-    def forward(self, x):
-        """The conv in x's dtype, the affine (+ ReLU) in float32, the result
-        in x's dtype (``resnet.py::_conv``)."""
-        y = F.conv2d(_pad_same(x, self.k, self.stride), self.w.to(x.dtype), stride=self.stride)
-        y = y.to(F32) * self.scale[:, None, None] + self.bias[:, None, None]
-        return (F.relu(y) if self.act else y).to(x.dtype)
+    def forward(self, x, residual=None, pad_for: tuple[int, int] | None = None, fill: float = 0.0):
+        """x already SAME-padded for this conv -> the conv in x's dtype, the
+        affine in float32 (``resnet.py::_conv``), ``residual`` added in x's
+        dtype, the ReLU, and the result in x's dtype padded as SAME pads it
+        before a (k, stride) = ``pad_for`` window, with ``fill``."""
+        y = F.conv2d(x, self.w.to(x.dtype), stride=self.stride)
+        pad = (0, 0, 0, 0)
+        if pad_for is not None:
+            pad = (*_same_pad(y.shape[2], *pad_for), *_same_pad(y.shape[3], *pad_for))
+        return conv_epilogue(y, self.scale, self.bias, residual, act=self.act, pad=pad, fill=fill)
 
 
 class Bottleneck(nn.Module):
@@ -75,13 +86,15 @@ class Bottleneck(nn.Module):
         super().__init__()
         self.c1 = Conv(cin, mid, 1)
         self.c2 = Conv(mid, mid, 3, stride=stride)
-        self.c3 = Conv(mid, cout, 1, act=False)
+        self.c3 = Conv(mid, cout, 1)  # its ReLU follows the residual
         self.proj = Conv(cin, cout, 1, stride=stride, act=False) if downsample else None
 
     def forward(self, x):
-        y = self.c3(self.c2(self.c1(x)))
+        """relu(c3(c2(c1(x))) + idn): c1 writes its output padded for c2,
+        c3 adds the identity (or ``proj(x)``) and applies the ReLU."""
+        y = self.c2(self.c1(x, pad_for=(self.c2.k, self.c2.stride)))
         idn = x if self.proj is None else self.proj(x)
-        return F.relu(y + idn)
+        return self.c3(y, residual=idn)
 
 
 class ResNet(nn.Module):
@@ -128,8 +141,8 @@ class ResNet(nn.Module):
         """images (B, H, W, 3) NHWC -> logits (B, n_classes) f32: the pooled
         features and the head in float32, as in the reference."""
         x = images.permute(0, 3, 1, 2).contiguous()
-        x = self.stem(x)
-        x = F.max_pool2d(_pad_same(x, 3, 2, value=-math.inf), 3, 2)
+        x = self.stem(_pad_same(x, self.stem.k, self.stem.stride), pad_for=(3, 2), fill=-math.inf)
+        x = F.max_pool2d(x, 3, 2)
         for i, dep in enumerate(self.cfg.depths):
             stage = getattr(self, f"stage{i}")
             for b in range(dep):

@@ -37,13 +37,22 @@ bit-equal on both devices.  Swin, DiT and the UNet (smoke configs, every
 zero-initialised leaf drawn) default to the card; card against CPU,
 float32, TF32 off, within 1e-4, DiT and the UNet launching the flash
 kernel once a layer or twice a transformer block, Swin and the CPU never.
-No kernel has a backward: each wrapper raises under autograd (and a ViT's
-backward on the card with it), and launches under ``no_grad``; one batch
+The conv epilogue is bit-equal to its plain version on the card at every
+call kind of ResNet-50 (N = 1, 7, 128; float32, bfloat16, float16; NaN
+payloads and signed zeros included), on misaligned and odd shapes, from
+a CUDA graph and on two streams at once; ResNet-50 FULL's logits at
+(128, 224, 224, 3) equal the plain path's bit for bit with 53 launches a
+forward; under autograd the dispatcher launches it too and its
+closed-form backward gives the plain version's grads bit for bit, alone
+and through a resnet-smoke loss.  No kernel has a backward of its own:
+each wrapper raises under autograd (and a ViT's backward on the card with
+it), and launches under ``no_grad``; one batch
 of the paper's slow tier gives the CPU's loss within 1e-5 relative and
 its grads within 1e-4 of their scale.  The dry run's counter: each kernel
 dispatcher reports the same cost on the card as on meta, and a bf16
 deit-smoke forward and a resnet-smoke train step count the same FLOPs and
-bytes on both; ``host_shard`` on a one-card NCCL ``DeviceMesh``.
+bytes on both (the train step's conv epilogues at the kernel's formula on
+both); ``host_shard`` on a one-card NCCL ``DeviceMesh``.
 """
 import numpy as np
 import pytest
@@ -52,6 +61,8 @@ import torch
 from repro_torch.configs.deit_b import SMOKE as DEIT_SMOKE
 from repro_torch.configs.resnet_50 import SMOKE
 from repro_torch.core.cascade import fast_pass
+from repro_torch.kernels.conv_epilogue import kernel as ce_kernel
+from repro_torch.kernels.conv_epilogue.ref import conv_epilogue_ref as ce_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused_calib_gate import kernel as cg_kernel
@@ -219,6 +230,231 @@ def test_fast_pass_card_matches_cpu(cuda_device):
         torch.testing.assert_close(cg.cpu(), cc, rtol=0, atol=1e-5)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _resnet50_epilogues(N):
+    """Every conv-epilogue call of one ResNet-50 FULL forward at N frames,
+    recorded on meta by ``chip_smoke.resnet50_epilogue_calls``: (acc shape,
+    with a residual, act, pad, fill)."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from chip_smoke import resnet50_epilogue_calls
+
+    return [call[1:] for call in resnet50_epilogue_calls(N)]
+
+
+def _ce_inputs(shape, residual, dtype, seed, device):
+    """A conv output (and a residual) with NaN, +-inf and -0.0 sprinkled in;
+    scale and bias with channel 0 at (1, -0.0), so -0.0 products survive."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw():
+        x = torch.randn(shape, generator=g, device=device) * 2
+        flat = x.view(-1)
+        idx = torch.randint(0, flat.numel(), (64,), generator=g, device=device)
+        flat[idx[:16]] = float("nan")
+        flat[idx[16:24]] = float("inf")
+        flat[idx[24:32]] = -float("inf")
+        flat[idx[32:]] = -0.0
+        flat[:4] = -0.0
+        return x.to(dtype)
+
+    C = shape[1]
+    scale = torch.randn(C, generator=g, device=device)
+    bias = torch.randn(C, generator=g, device=device)
+    scale[0], bias[0] = 1.0, -0.0
+    return draw(), scale, bias, (draw() if residual else None)
+
+
+_CE_INT = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.float16: torch.int16}
+
+
+def _ce_bits_equal(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(_CE_INT[a.dtype]), b.view(_CE_INT[b.dtype]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("N", [1, 7, 128])
+def test_conv_epilogue_cuda_bit_equal_to_plain_version(cuda_device, N, dtype):
+    """Every epilogue shape of ResNet-50 at N frames: the kernel's output,
+    border and interior, NaN payloads and signed zeros included, equals the
+    plain version's on the card bit for bit."""
+    kinds = sorted(set(_resnet50_epilogues(N)), key=str)
+    assert len(kinds) == 20
+    for i, (shape, residual, act, pad, fill) in enumerate(kinds):
+        acc, scale, bias, idn = _ce_inputs(shape, residual, dtype, seed=100 + i, device=cuda_device)
+        before = ce_kernel.conv_epilogue.launches
+        with torch.no_grad():
+            got = ce_kernel.conv_epilogue(acc, scale, bias, idn, act=act, pad=pad, fill=fill)
+            want = ce_ref(acc, scale, bias, idn, act=act, pad=pad, fill=fill)
+        torch.cuda.synchronize()
+        assert ce_kernel.conv_epilogue.launches == before + 1
+        assert _ce_bits_equal(got, want), (shape, residual, act, pad, fill)
+        assert bool(torch.isnan(got).any())
+        del acc, idn, got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_conv_epilogue_cuda_misaligned_and_odd_shapes(cuda_device, dtype):
+    """Views one element past a 16-byte boundary, planes of one element
+    and odd sizes equal the plain version bit for bit."""
+    def misaligned(x):
+        return torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape).copy_(x)
+
+    for shape, residual, pad in [((3, 5, 7, 7), True, (0, 0, 0, 0)), ((2, 3, 1, 1), False, (0, 0, 0, 0)),
+                                 ((2, 3, 1, 2), True, (1, 1, 0, 2)), ((1, 1, 3, 5), False, (0, 0, 0, 0)),
+                                 ((4, 6, 9, 11), True, (2, 0, 1, 3))]:
+        acc, scale, bias, idn = _ce_inputs(shape, residual, dtype, seed=7, device=cuda_device)
+        want = ce_ref(acc, scale, bias, idn, act=True, pad=pad, fill=-1.5)
+        for a, r in ((acc, idn), (misaligned(acc), idn), (acc, None if idn is None else misaligned(idn))):
+            with torch.no_grad():
+                got = ce_kernel.conv_epilogue(a, scale, bias, r, act=True, pad=pad, fill=-1.5)
+            assert _ce_bits_equal(got, want), (shape, residual, pad)
+
+
+@pytest.mark.cuda
+def test_resnet50_full_card_bit_equal_to_plain_path(cuda_device, monkeypatch):
+    """ResNet-50 FULL at (128, 224, 224, 3) with int8 QDQ weights and drawn
+    frozen-BN scales and biases: the kernel's logits equal the plain path's
+    on the card (the eager epilogue, the same convolutions) bit for bit,
+    and each forward launches the kernel exactly 53 times."""
+    from repro_torch.configs.resnet_50 import FULL
+    from repro_torch.models import resnet
+
+    model = ResNet(FULL, generator=torch.Generator(device="cuda").manual_seed(3), device=cuda_device)
+    model.load_state_dict(qdq_tree(model.state_dict()))
+    g = torch.Generator(device="cuda").manual_seed(4)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".scale"):
+                p.copy_(torch.rand(p.shape, generator=g, device=cuda_device) + 0.5)
+            elif name.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=g, device=cuda_device) * 0.1)
+    x = torch.randn(128, 224, 224, 3, generator=g, device=cuda_device)
+    before = ce_kernel.conv_epilogue.launches
+    with torch.inference_mode():
+        got = model(x)
+        torch.cuda.synchronize()
+        assert ce_kernel.conv_epilogue.launches == before + 53
+        again = model(x)
+        torch.cuda.synchronize()
+        assert ce_kernel.conv_epilogue.launches == before + 106
+        monkeypatch.setattr(resnet, "conv_epilogue", ce_ref)
+        want = model(x)
+    torch.cuda.synchronize()
+    assert ce_kernel.conv_epilogue.launches == before + 106
+    assert got.shape == (128, FULL.n_classes) and bool(torch.isfinite(got).all())
+    assert _ce_bits_equal(got, want) and _ce_bits_equal(again, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_conv_epilogue_cuda_backward_equals_the_plain_versions_grads(cuda_device, dtype):
+    """Under autograd the dispatcher launches the kernel once a call (through
+    ``ConvEpilogue``) and its backward gives autograd's grads through the
+    plain version on the card bit for bit, at every call kind of ResNet-50
+    at 7 frames, NaN and -0.0 in acc and idn included."""
+    from repro_torch.kernels.conv_epilogue.ops import conv_epilogue
+
+    for i, (shape, residual, act, pad, fill) in enumerate(sorted(set(_resnet50_epilogues(7)), key=str)):
+        results = []
+        for fn in (conv_epilogue, ce_ref):
+            acc, scale, bias, idn = _ce_inputs(shape, residual, dtype, seed=200 + i, device=cuda_device)
+            leaves = [t.requires_grad_(True) for t in (acc, scale, bias, idn) if t is not None]
+            before = ce_kernel.conv_epilogue.launches
+            out = fn(acc, scale, bias, idn, act=act, pad=pad, fill=fill)
+            assert ce_kernel.conv_epilogue.launches == before + (fn is conv_epilogue)
+            g = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(i), device=cuda_device)
+            out.backward(g.to(dtype))
+            results.append((out.detach(), [t.grad for t in leaves]))
+        (got, got_grads), (want, want_grads) = results
+        assert _ce_bits_equal(got, want), (shape, residual, pad)
+        for x, w in zip(got_grads, want_grads):
+            assert _ce_bits_equal(x, w), (shape, residual, pad)
+
+
+@pytest.mark.cuda
+def test_resnet_under_autograd_on_the_card_launches_the_kernel(cuda_device, monkeypatch):
+    """With grad enabled and parameters that require grad the model launches
+    the kernel once a conv, and its loss and grads equal the plain
+    epilogue's bit for bit (cuDNN deterministic, so the convolutions'
+    backward is too); under ``no_grad`` it launches as many."""
+    from repro_torch.models import resnet
+
+    model = ResNet(SMOKE, generator=torch.Generator(device="cuda").manual_seed(5), device=cuda_device)
+    x = torch.randn(4, 32, 32, 3, device=cuda_device)
+    n_convs = 1 + sum(3 + (b == 0) for d in SMOKE.depths for b in range(d))
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    results = []
+    for epilogue in (resnet.conv_epilogue, ce_ref):
+        monkeypatch.setattr(resnet, "conv_epilogue", epilogue)
+        model.zero_grad(set_to_none=True)
+        before = ce_kernel.conv_epilogue.launches
+        loss = model(x).square().mean()
+        loss.backward()
+        assert ce_kernel.conv_epilogue.launches == before + (n_convs if epilogue is not ce_ref else 0)
+        results.append((loss.detach(), {n: p.grad for n, p in model.named_parameters()}))
+    (loss, grads), (loss_ref, grads_ref) = results
+    assert torch.equal(loss, loss_ref)
+    assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads.values())
+    assert all(_ce_bits_equal(grads[n], grads_ref[n]) for n in grads)
+    monkeypatch.undo()
+    before = ce_kernel.conv_epilogue.launches
+    with torch.no_grad():
+        plain = model(x)
+    assert ce_kernel.conv_epilogue.launches == before + n_convs
+    torch.testing.assert_close(plain, model(x).detach(), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_conv_epilogue_cuda_graph_replay(cuda_device):
+    """A call captured in a CUDA graph replays the kernel on new inputs, on
+    both paths."""
+    for shape, residual, pad in [((8, 64, 28, 28), True, (0, 0, 0, 0)), ((8, 64, 28, 28), False, (0, 1, 0, 1))]:
+        acc, scale, bias, idn = _ce_inputs(shape, residual, torch.float32, seed=9, device=cuda_device)
+        with torch.no_grad():
+            ce_kernel.conv_epilogue(acc, scale, bias, idn, act=True, pad=pad)  # warm: built and loaded
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = ce_kernel.conv_epilogue(acc, scale, bias, idn, act=True, pad=pad)
+            for seed in (10, 11):
+                new = _ce_inputs(shape, residual, torch.float32, seed=seed, device=cuda_device)
+                acc.copy_(new[0])
+                if residual:
+                    idn.copy_(new[3])
+                graph.replay()
+                torch.cuda.synchronize()
+                assert _ce_bits_equal(out, ce_ref(acc, scale, bias, idn, act=True, pad=pad))
+
+
+@pytest.mark.cuda
+def test_conv_epilogue_cuda_two_streams_at_once(cuda_device):
+    """Calls on two streams may overlap: the kernel keeps no state on the card."""
+    ins = [_ce_inputs((16, 256, 56, 56), True, torch.float32, seed=s, device=cuda_device) for s in (12, 13)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    out = [[], []]
+    with torch.no_grad():
+        for _ in range(10):
+            for i in (0, 1):
+                with torch.cuda.stream(streams[i]):
+                    acc, scale, bias, idn = ins[i]
+                    out[i].append(ce_kernel.conv_epilogue(acc, scale, bias, idn, act=True))
+                    out[i].append(ce_kernel.conv_epilogue(acc, scale, bias, act=True, pad=(1, 1, 1, 1)))
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        acc, scale, bias, idn = ins[i]
+        want = (ce_ref(acc, scale, bias, idn, act=True), ce_ref(acc, scale, bias, act=True, pad=(1, 1, 1, 1)))
+        for k, got in enumerate(out[i]):
+            assert _ce_bits_equal(got, want[k % 2])
 
 
 def _qkv(B, Sq, Sk, H, D, seed, device, dtype=torch.float32):
@@ -1239,11 +1475,13 @@ def _wrapper_calls(device):
                            lambda: kv_kernel.int8_kv_decode(f32(2, 4, 64), s8(2, 32, 2, 64),
                                                             torch.rand(2, 32, generator=g, device=device), s8(2, 32, 2, 64),
                                                             torch.rand(2, 32, generator=g, device=device))),
+        "conv_epilogue": (ce_kernel.conv_epilogue,
+                          lambda: ce_kernel.conv_epilogue(f32(2, 4, 6, 6), f32(4), f32(4), act=True, pad=(1, 1, 1, 1))),
     }
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["calib_gate", "flash_attention", "int8_matmul", "int8_kv_decode"])
+@pytest.mark.parametrize("name", ["calib_gate", "flash_attention", "int8_matmul", "int8_kv_decode", "conv_epilogue"])
 def test_kernel_wrappers_raise_under_autograd(cuda_device, name):
     """No kernel has a backward: with grad enabled and an input that
     requires grad the wrapper raises before it launches; under ``no_grad``
@@ -1389,6 +1627,7 @@ def test_counts_on_the_card_equal_meta_counts(cuda_device):
         counts[dev] = (c.flops, c.bytes, dict(c.per_kernel))
     assert counts["cuda"] == counts["meta"]
     assert counts["cuda"][2]["flash_attention"][0] == DEIT_SMOKE.n_layers
+    assert counts["cuda"][2]["conv_epilogue"][0] == 1 + sum(3 + (b == 0) for d in SMOKE.depths for b in range(d))
 
 
 @pytest.mark.cuda
