@@ -14,11 +14,10 @@ then, in one process:
    each window's ``frames_per_s``, mean and p95 round;
 2. one window timed as the benchmark's traced run (the tiers' CUDA
    events, host clocks around the planner and the fabric) with the
-   spans on: each span's mean ms a round, the ``syncs`` a round (on the
-   card, where the frames are staged in pinned memory and their copy
-   does not block, 4 + k in a round that escalates at k planned
-   resolutions, else 2; 5 + k and 3 where the copy blocks, as on the
-   CPU), the ``staged`` rounds a round (1 on the card), the round's self
+   spans on: each span's mean ms a round, the ``syncs`` a round (4 + k
+   in a round that escalates at k planned resolutions, else 2: the
+   frames are staged, and on the card their copy from pinned memory
+   does not block), the ``staged`` rounds a round (1), the round's self
    time against its span, ``wall_ms`` less the round span, and
    ``host_rest_ms`` as the benchmark computes it;
 3. profiled clips (``Bench.profile``), with the spans off, on, on, off:

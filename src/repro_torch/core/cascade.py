@@ -97,18 +97,15 @@ def cascade_classify(fast_forward: Callable, slow_forward: Callable, calibrate: 
     return CascadeOut(merged, fast_preds, conf, escalated, esc_idx)
 
 
-def slow_pass_multires(slow_forward, images, resolutions, profiler=None):
+def slow_pass_multires(slow_forward, images, resolutions):
     """Slow-tier half for a gathered escalation batch: each frame degraded
     at its own planned resolution, then ONE slow-tier call for the batch.
-    ``profiler`` (``obs.PhaseProfiler``) counts each resolution's index
-    copy, from pageable host memory, under ``"syncs"``."""
+    Each distinct resolution copies its row indices from host memory."""
     res = np.asarray(resolutions)
     if len(res) != images.shape[0]:
         raise ValueError("one resolution per gathered image")
     degraded = images.clone()
     for r in np.unique(res):
-        if profiler is not None:
-            profiler.count("syncs")
         sel = torch.as_tensor(np.flatnonzero(res == r), device=images.device)
         degraded[sel] = degrade_resolution(images[sel], int(r))
     return slow_forward(degraded).argmax(dim=-1)

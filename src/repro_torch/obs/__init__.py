@@ -1,8 +1,10 @@
 """Fleet telemetry: per-round time series, frame tracing, phase profiling
 (port of ``repro.obs``; host numpy).
 
-The observability layer behind ``MultiStreamServer(..., telemetry=...)``:
-zero cost when off (the engine holds ``None`` and skips every hook).
+The observability layer behind ``MultiStreamServer(..., telemetry=...)``.
+A part left off costs next to nothing: the engine skips the recorder's and
+the tracer's rows, and sends its spans to ``profile.NULL_PROFILER``, whose
+methods do nothing.
 
   * ``timeseries.FleetRecorder`` — per-round SoA time series of the
     control loop's observables (counters, bandwidth EWMA against truth,
@@ -12,7 +14,7 @@ zero cost when off (the engine holds ``None`` and skips every hook).
   * ``profile.PhaseProfiler`` — the numpy round loop's host spans (a
     ``round`` root over slice / h2d / fast / fast_wait / plan / gate /
     slow / slow_wait / transmit / fold / hook), their per-phase totals
-    and the per-round ``syncs`` counter.
+    and the per-round ``syncs`` and ``staged`` counters.
 
 ``Telemetry`` is the bundle the engine consumes: pick the parts with
 flags; the server binds the fleet's dimensions at construction.
@@ -24,12 +26,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
-from repro_torch.obs.profile import PhaseProfiler, aot_split
+from repro_torch.obs.profile import NULL_PROFILER, NullProfiler, PhaseProfiler, aot_split
 from repro_torch.obs.timeseries import FleetRecorder, relock_lags
 from repro_torch.obs.trace import FrameTracer, export_chrome_trace
 
-__all__ = ["Telemetry", "FleetRecorder", "FrameTracer", "PhaseProfiler",
-           "export_chrome_trace", "relock_lags", "aot_split"]
+__all__ = ["Telemetry", "FleetRecorder", "FrameTracer", "PhaseProfiler", "NullProfiler",
+           "NULL_PROFILER", "export_chrome_trace", "relock_lags", "aot_split"]
 
 
 @dataclass

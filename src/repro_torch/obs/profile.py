@@ -11,7 +11,9 @@ format, and ``count`` keeps named counts per round.  While a
 range ``serving.<name>``, so the spans share the device trace's clock.
 The profiler reads the host clock and never synchronizes the card, so a
 span holds device time only where the engine already waits for a result.
-Zero cost when off: the engines hold ``None`` and never touch a clock.
+With the profiler off the engines call ``NULL_PROFILER`` (``NullProfiler``)
+in its place, whose methods do nothing: it reads no clock and opens no
+range.
 
 ``model_range`` gives a model's forward its own ranges (``vit.rope``,
 ``vit.attn``) on the same terms: a ``record_function`` while a span holds
@@ -32,7 +34,8 @@ from typing import NamedTuple
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["PhaseProfiler", "Span", "aot_split", "model_range", "ROUND", "RANGE_PREFIX"]
+__all__ = ["PhaseProfiler", "NullProfiler", "NULL_PROFILER", "Span", "aot_split", "model_range",
+           "ROUND", "RANGE_PREFIX"]
 
 ROUND = "round"  # the root span of each round
 RANGE_PREFIX = "serving."  # a span's ``record_function`` range: this and its name
@@ -174,8 +177,43 @@ class PhaseProfiler:
         self.n_rounds = 0
 
 
+class NullProfiler:
+    """``PhaseProfiler``'s recording methods, each a no-op: what the
+    engines and the planner call when nothing profiles them.  It reads no
+    clock, opens no ``record_function`` range and keeps nothing."""
+
+    __slots__ = ()
+
+    def add(self, name: str, seconds: float) -> None:
+        pass
+
+    def open(self, name: str) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+    def switch(self, name: str) -> None:
+        pass
+
+    def open_round(self) -> None:
+        pass
+
+    def close_all(self) -> None:
+        pass
+
+    def phase(self, name: str):
+        return _NO_RANGE
+
+    def count(self, name: str, n: int = 1) -> None:
+        pass
+
+
+NULL_PROFILER = NullProfiler()
+
+
 @torch.inference_mode()
-def aot_split(fn, *state: torch.Tensor, profiler: PhaseProfiler | None = None):
+def aot_split(fn, *state: torch.Tensor, profiler: PhaseProfiler | NullProfiler = NULL_PROFILER):
     """Warm up ``fn()`` and capture it as a CUDA graph; time both.
 
     ``fn()`` takes no arguments and updates the tensors ``state`` in place
@@ -185,8 +223,8 @@ def aot_split(fn, *state: torch.Tensor, profiler: PhaseProfiler | None = None):
     start from the caller's state.  Returns ``(replayable, seconds)``: on
     the card ``replayable`` replays the graph (a capture that fails raises;
     there is no eager fallback), on the CPU it is ``fn`` itself and
-    ``seconds`` the time of its warm-up call.  With ``profiler`` the
-    seconds are also added under ``"compile"``.
+    ``seconds`` the time of its warm-up call.  The seconds are also added
+    to ``profiler`` under ``"compile"``.
     """
     t0 = time.perf_counter()
     saved = [t.clone() for t in state]
@@ -210,6 +248,5 @@ def aot_split(fn, *state: torch.Tensor, profiler: PhaseProfiler | None = None):
     else:
         replay = fn
     dt = time.perf_counter() - t0
-    if profiler is not None:
-        profiler.add("compile", dt)
+    profiler.add("compile", dt)
     return replay, dt

@@ -35,6 +35,7 @@ import numpy as np
 
 from repro_torch.core.netsim import payload_sizes
 from repro_torch.device import resolve_device
+from repro_torch.obs.profile import NULL_PROFILER
 from repro_torch.policy.base import OneShotPolicy
 from repro_torch.policy.types import ActionTable, EnvBatch, Frame, PlanBatch
 
@@ -313,9 +314,9 @@ class FleetRunner:
         self.actions = actions if actions.has_splits else None
         self.sizes = actions.sizes[:actions.n_frame_actions]
         self.bw_alpha = float(bw_alpha)
-        # telemetry hook (``obs.PhaseProfiler``): when set, plan_all folds
-        # its wall clock into the "plan" phase; None costs nothing
-        self.profiler = None
+        # telemetry hook (``obs.PhaseProfiler``): plan_all folds its wall
+        # clock into the "plan" phase; the default does nothing
+        self.profiler = NULL_PROFILER
         # under an edge fabric, ``bw_init`` is the (S,) per-cell prior and
         # each stream's EWMA tracks its own cell's uplink from then on
         self.bw_est = np.broadcast_to(np.asarray(bw_init, dtype=np.float64), (S,)).copy()
@@ -373,8 +374,6 @@ class FleetRunner:
 
     def plan_all(self, now: np.ndarray, active: np.ndarray | None = None) -> PlanBatch:
         """One planning pass over every active stream's backlog."""
-        if self.profiler is None:
-            return self._plan_all(now, active)
         with self.profiler.phase("plan"):
             return self._plan_all(now, active)
 

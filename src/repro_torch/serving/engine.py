@@ -27,14 +27,13 @@ The tiers run on ``device`` (``cuda`` unless the caller passes ``"cpu"``).
 With ``backend="numpy"`` the planner, the uplink, the fabric, the metrics
 and the telemetry (``obs/``) stay on the host in float64, as the
 reference's numpy engine; with ``backend="torch"`` the whole round runs on
-``device`` as well (``serving/engine_torch.py``): the tiers are
+``device`` as well (``serving/engine_torch.py::serve``): the tiers are
 precomputed for every round first, then one CUDA graph replay a round
 advances the fleet, and the final state is folded back into the host
 objects.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -45,6 +44,7 @@ from repro_torch.core.cascade import cascade_classify, fast_pass, slow_pass_mult
 from repro_torch.core.netsim import Uplink, png_size_model, transfer_seconds
 from repro_torch.device import resolve_device
 from repro_torch.net import EdgeFabric
+from repro_torch.obs.profile import NULL_PROFILER
 from repro_torch.policy import BandwidthEstimator, FleetRunner, PolicyRunner, resolve_policies
 from repro_torch.serving.events import ArrivalSchedule, EscalationBatch, select_escalations
 from repro_torch.serving.metrics import AggregateMetrics, ServeMetrics
@@ -155,7 +155,7 @@ class CascadeServer:
 
 
 class FrameStage:
-    """A round's frames on their way to a CUDA device, through one host
+    """A round's frames on their way to the device, through one host
     buffer that every round of a replay reuses.
 
     ``frames`` is the (S, N, ...) pool.  The buffer holds S·``batch_size``
@@ -210,11 +210,11 @@ class MultiStreamServer:
     per-round recorder, a frame tracer and a profiler of the round's host
     spans (slice, h2d, fast, fast_wait, plan, gate, slow, slow_wait,
     transmit, fold, hook), of its blocking transfers (``syncs``) and of
-    its rounds staged through pinned memory (``staged``); ``None`` is the
-    zero-cost path.  On a CUDA device each round's frames are filled into
-    one reused pinned buffer (``FrameStage``: the ``slice`` span) and copied
-    to the card without blocking (``h2d``: issuing the copy); on any other
-    device they are sliced into a new array and copied as they are.
+    its rounds staged (``staged``); without a profiler the spans go to
+    ``obs.NULL_PROFILER``, which does nothing.  On every device each
+    round's frames are filled into one reused host buffer (``FrameStage``:
+    the ``slice`` span; pinned on a CUDA device) and copied to the device
+    (``h2d``: issuing the copy, which does not block on the card).
     ``backend="torch"`` runs the round loop on
     ``device`` (the reference's ``backend="jax"``; configurations it cannot
     express raise at construction, ``engine_torch.torch_unsupported``).
@@ -274,14 +274,18 @@ class MultiStreamServer:
         )
         self.metrics = AggregateMetrics.for_streams(n_streams, uplink=self.uplink,
                                                     fabric=fabric)
-        # optional observability bundle (``obs.Telemetry``); ``None`` is the
-        # zero-cost path: every hook below is an ``is not None`` check
+        # optional observability bundle (``obs.Telemetry``).  The round's
+        # spans, and the planner's ``plan`` span, go to its profiler, or
+        # without one to ``NULL_PROFILER``, which does nothing
         self.telemetry = telemetry
-        if telemetry is not None:
+        if telemetry is None:
+            self.profiler = NULL_PROFILER
+        else:
             telemetry.bind(n_streams=n_streams, n_cells=fabric.n_cells,
                            n_replicas=fabric.n_replicas,
                            n_actions=self.fleet.action_table.n_actions)
-            self.fleet.profiler = telemetry.profiler
+            self.profiler = NULL_PROFILER if telemetry.profiler is None else telemetry.profiler
+        self.fleet.profiler = self.profiler
         if backend == "torch":
             from repro_torch.serving.engine_torch import torch_unsupported
 
@@ -310,55 +314,42 @@ class MultiStreamServer:
             raise ValueError("schedule shape must match frames (S, N)")
         self.metrics.wall_time = schedule.horizon
         if self.backend == "torch":
-            return self._process_streams_torch(frames, labels, schedule)
-        # telemetry hooks: host clocks only, no device synchronization; a
-        # span holds device time where the round already waits for it.  The
-        # profiler's spans: a ``round`` root over the steps below, each
-        # opened and closed behind ``prof is not None`` (``plan`` is
+            from repro_torch.serving.engine_torch import serve
+
+            return serve(self, frames, labels, schedule)
+        # the profiler's spans, on host clocks with no device synchronization
+        # (a span holds device time where the round already waits for it): a
+        # ``round`` root over the steps below (``plan`` is
         # ``FleetRunner.plan_all``'s own); ``syncs`` counts the round's
-        # blocking transfers (copies to the host, and to the device from
-        # pageable memory, which wait for the stream); ``staged`` counts
-        # rounds whose frames went through the pinned ``FrameStage``, whose
-        # copy to the card does not block (pinning needs CUDA: elsewhere the
-        # frames are sliced and copied as they are)
-        tel = self.telemetry
-        rec = tel.recorder if tel is not None else None
-        tracer = tel.tracer if tel is not None else None
-        prof = tel.profiler if tel is not None else None
-        stage = FrameStage(frames, B, self.device) if self.device.type == "cuda" else None
+        # blocking transfers (copies to the host, and index copies to the
+        # device from pageable memory, which wait for the stream); ``staged``
+        # counts rounds whose frames went through the ``FrameStage``, whose
+        # copy to the card does not block
+        rec = getattr(self.telemetry, "recorder", None)
+        tracer = getattr(self.telemetry, "tracer", None)
+        prof = self.profiler
+        stage = FrameStage(frames, B, self.device)
 
         try:
             for start, arr, valid in schedule.rounds(B):
-                if prof is not None:
-                    prof.open_round()
+                prof.open_round()
                 b = arr.shape[1]
                 active = valid.any(axis=1)  # (S,) streams with frames this round
                 self.fleet.retire(~active)
 
-                if prof is not None:
-                    prof.open("slice")
-                if stage is None:
-                    host = frames[:, start : start + b].reshape(S * b, *frames.shape[2:])
-                else:
-                    host = stage.fill(start, b)
-                if prof is not None:
-                    prof.switch("h2d")
-                    prof.count("syncs" if stage is None else "staged")
-                if stage is None:
-                    flat = torch.as_tensor(host, device=self.device)
-                else:
-                    flat = stage.to_device(host)
-                if prof is not None:
-                    prof.switch("fast")
+                prof.open("slice")
+                host = stage.fill(start, b)
+                prof.switch("h2d")
+                prof.count("staged")
+                flat = stage.to_device(host)
+                prof.switch("fast")
                 fp, cf = fast_pass(self.fast_forward, self.calibrate, flat,
                                    use_fused=cfg.use_fused, platt_ab=cfg.platt_ab)
-                if prof is not None:
-                    prof.switch("fast_wait")
-                    prof.count("syncs", 2)
+                prof.switch("fast_wait")
+                prof.count("syncs", 2)
                 fast_preds = fp.cpu().numpy().reshape(S, b)
                 conf = cf.cpu().numpy().reshape(S, b)
-                if prof is not None:
-                    prof.close()
+                prof.close()
                 t_ready = arr + t_fast  # (S, b); +inf on invalid slots
 
                 # control plane: one batched plan over every active backlog,
@@ -377,8 +368,7 @@ class MultiStreamServer:
 
                 # planner-assumed and transmitted payloads come from one table;
                 # for frame actions ``+ t_dev`` and ``* srv_frac`` are no-ops
-                if prof is not None:
-                    prof.open("gate")
+                prof.open("gate")
                 act = self.fleet.action_table
                 conf_gate = np.where(valid, conf, np.inf)
                 s_idx, slot_idx = select_escalations(conf_gate, theta, cap)
@@ -389,31 +379,27 @@ class MultiStreamServer:
                     payload=act.sizes[a_esc],
                     res=resolutions[act.res][a_esc],
                 )
-                if prof is not None:
-                    prof.close()
+                prof.close()
 
                 # one gather on the device, one slow-tier call for every
                 # stream's escalations
                 if len(esc):
-                    if prof is not None:
-                        prof.open("slow")
-                        prof.count("syncs")
+                    prof.open("slow")
+                    # the gather's index, and one index a planned resolution
+                    prof.count("syncs", 1 + len(np.unique(esc.res)))
                     gathered = flat.index_select(
                         0, torch.as_tensor(s_idx * b + slot_idx, device=self.device))
-                    slow = slow_pass_multires(self.slow_forward, gathered, esc.res, profiler=prof)
-                    if prof is not None:
-                        prof.switch("slow_wait")
-                        prof.count("syncs")
+                    slow = slow_pass_multires(self.slow_forward, gathered, esc.res)
+                    prof.switch("slow_wait")
+                    prof.count("syncs")
                     slow_preds = slow.cpu().numpy()
-                    if prof is not None:
-                        prof.close()
+                    prof.close()
                 else:
                     slow_preds = np.zeros(0, dtype=fast_preds.dtype)
 
                 # fair uplink schedule (cost normalized by each stream's own
                 # cell rate), then one fabric transmit for the round
-                if prof is not None:
-                    prof.open("transmit")
+                prof.open("transmit")
                 order = self.scheduler.order(esc.stream, esc.t_ready,
                                              cost=esc.payload / self._stream_bw[esc.stream])
                 q = esc.permuted(order)
@@ -421,8 +407,7 @@ class MultiStreamServer:
                 lands = self.fabric.transmit(q.stream, q.payload, q.t_ready,
                                              service_scale=act.srv_frac[res_idx[q.stream]],
                                              collect_detail=tracer is not None)
-                if prof is not None:
-                    prof.switch("fold")
+                prof.switch("fold")
                 ok = lands <= arr[q.stream, q.slot] + cfg.deadline
                 final = fast_preds.copy()
                 final[q.stream[ok], q.slot[ok]] = slow_q[ok]
@@ -453,8 +438,7 @@ class MultiStreamServer:
                            if labels is not None else np.zeros(S, dtype=np.int64))
                 self.metrics.update_round(valid.sum(axis=1), off_counts, miss_counts,
                                           correct, lat, valid)
-                if prof is not None:
-                    prof.switch("hook")
+                prof.switch("hook")
 
                 if tracer is not None and len(q):
                     d = self.fabric.last_detail
@@ -506,174 +490,8 @@ class MultiStreamServer:
                         "bw_est": self.fleet.bw_est.copy(),
                         "lengths": self.fleet.state.lengths.copy(),
                     })
-                if prof is not None:
-                    prof.close()  # hook
-                    prof.close()  # round
+                prof.close()  # hook
+                prof.close()  # round
         finally:
-            if prof is not None:
-                prof.close_all()  # a round hook that raised leaves its spans open
-        return self.metrics
-
-    def _process_streams_torch(self, frames, labels, schedule) -> AggregateMetrics:
-        """Round engine on ``device``: precompute the tiers of every round
-        there (one fast pass, and the slow tier at each resolution over
-        every frame, compared with the labels in place), stack the rounds'
-        inputs, run one CUDA graph replay a round (``engine_torch``), then
-        fold the final state back into the host objects.  Decisions are
-        held to the numpy path by ``tests/test_torch_engine.py``."""
-        from repro_torch.policy.fleet_torch import unpad_fleet
-        from repro_torch.serving import engine_torch as et
-
-        cfg = self.cfg
-        S, B, dev = self.n_streams, cfg.batch_size, self.device
-        resolutions = np.asarray(cfg.resolutions)
-        m = len(resolutions)
-        tel = self.telemetry
-        rec = tel.recorder if tel is not None else None
-        prof = tel.profiler if tel is not None else None
-        spec = et.spec_from_server(self, collect="trace" if self.round_hook is not None else "metrics",
-                                   telemetry=rec is not None)
-        params = et.params_from_server(self, spec, device=dev)
-        dt = spec.planner.dtype
-
-        # precompute on the device: both tiers are deterministic per frame,
-        # so this equals the numpy path's escalated-only batching
-        t0 = time.perf_counter() if prof is not None else 0.0
-        rounds, host_rounds = [], []
-        for start, arr, valid in schedule.rounds(B):
-            b = arr.shape[1]
-            flat = torch.as_tensor(frames[:, start : start + b].reshape(S * b, *frames.shape[2:]),
-                                   device=dev)
-            fp, cf = fast_pass(self.fast_forward, self.calibrate, flat,
-                               use_fused=cfg.use_fused, platt_ab=cfg.platt_ab)
-            conf = cf.reshape(S, b).to(dt)
-            fast_ok = torch.zeros((S, b), dtype=torch.bool, device=dev)
-            slow_ok = torch.zeros((S, b, m), dtype=torch.bool, device=dev)
-            if labels is not None:
-                lab = torch.as_tensor(labels[:, start : start + b], device=dev)
-                fast_ok = fp.reshape(S, b) == lab
-                slow_ok = torch.stack([
-                    slow_pass_multires(self.slow_forward, flat, np.full(S * b, r)).reshape(S, b) == lab
-                    for r in resolutions], dim=-1)
-            pad = B - b
-            arr_t = torch.as_tensor(np.pad(arr, ((0, 0), (0, pad)), constant_values=np.inf),
-                                    device=dev).to(dt)
-            valid_t = torch.as_tensor(np.pad(valid, ((0, 0), (0, pad))), device=dev)
-            rounds.append((arr_t, valid_t,
-                           torch.nn.functional.pad(conf, (0, pad), value=torch.inf),
-                           torch.nn.functional.pad(fast_ok, (0, pad)),
-                           torch.nn.functional.pad(slow_ok, (0, 0, 0, pad))))
-            host_rounds.append((start, b, arr, valid))
-        if prof is not None:
-            prof.add("precompute", time.perf_counter() - t0)
-        if not rounds:
-            return self.metrics
-        inputs = et.RoundInputs(*(torch.stack(col) for col in zip(*rounds)))
-        carry, ys = et.simulate(spec, params, inputs, profiler=prof)
-        if carry.fp_bad is not None and bool(carry.fp_bad):
-            import warnings
-
-            warnings.warn(
-                "a time-varying uplink fixed point failed to settle inside the round "
-                "engine; the numpy reference would have used its exact serial "
-                "fallback, so results may diverge", RuntimeWarning)
-
-        # fold the per-round counters and latencies into the same
-        # AggregateMetrics, and the final state into the host objects
-        t0 = time.perf_counter() if prof is not None else 0.0
-        cells, pool = self.fabric.cells, self.fabric.pool
-        base_cb = np.asarray([c.uplink.busy_seconds for c in cells])
-        base_cq = np.asarray([c.uplink.queued_seconds for c in cells])
-        base_rb, base_rq = pool.busy_seconds.copy(), pool.queued_seconds.copy()
-        base_ctr = (self.metrics._frames.copy(), self.metrics._offloaded.copy(),
-                    self.metrics._missed.copy(), self.metrics._correct.copy())
-        def to_np(t, dtype=None):
-            a = t.cpu().numpy()
-            return a if dtype is None else a.astype(dtype)
-
-        off, miss, corr = to_np(ys.off_counts), to_np(ys.miss_counts), to_np(ys.correct)
-        lat = to_np(ys.lat, np.float64)
-        for i, (start, b, arr, valid) in enumerate(host_rounds):
-            self.metrics.update_round(valid.sum(axis=1), off[i], miss[i], corr[i],
-                                      lat[i][:, :b], valid)
-        for c, cell in enumerate(cells):
-            cell.uplink._busy_until = float(carry.cell_busy[c])
-            cell.uplink.n_transfers += int(carry.cell_n[c])
-            cell.uplink.busy_seconds += float(carry.cell_busy_s[c])
-            cell.uplink.queued_seconds += float(carry.cell_queued_s[c])
-        pool.busy_until[:] = to_np(carry.rep_busy, np.float64)
-        pool.n_jobs += to_np(carry.rep_n, np.int64)
-        pool.busy_seconds += to_np(carry.rep_busy_s, np.float64)
-        pool.queued_seconds += to_np(carry.rep_queued_s, np.float64)
-        pool.avg_batch = float(carry.avg_batch)  # occupancy EWMA (1.0 = serial)
-        self.fabric.placement._next = int(carry.rr_next)
-        self.fleet.bw_est[:] = to_np(carry.bw_est, np.float64)
-        arr_f, conf_f, lens = unpad_fleet(carry.fleet)
-        st = self.fleet.state
-        st.arrival = arr_f.astype(np.float64)
-        st.conf = conf_f.astype(np.float64)
-        st.stream_id = np.repeat(np.arange(S), lens)
-        st._rebuild_offsets()
-        if prof is not None:
-            prof.add("fold", time.perf_counter() - t0)
-
-        if rec is not None:
-            # the stacked telemetry columns into the recorder: cumulative
-            # counters from host cumsums of the per-round integer columns
-            # (numpy's running sums exactly), t and bw_true recomputed on the
-            # host from the same float64 arrival grid
-            frames_c = base_ctr[0] + np.cumsum([v.sum(axis=1) for _, _, _, v in host_rounds], axis=0)
-            off_c = base_ctr[1] + np.cumsum(off, axis=0, dtype=np.int64)
-            miss_c = base_ctr[2] + np.cumsum(miss, axis=0, dtype=np.int64)
-            corr_c = base_ctr[3] + np.cumsum(corr, axis=0, dtype=np.int64)
-            bw_ts = to_np(ys.ts_bw_est, np.float64)
-            hist_ts = to_np(ys.ts_off_hist, np.int64)
-            cb = base_cb + to_np(ys.ts_cell_busy_s, np.float64)
-            cq = base_cq + to_np(ys.ts_cell_queued_s, np.float64)
-            rb = base_rb + to_np(ys.ts_rep_busy_s, np.float64)
-            rq = base_rq + to_np(ys.ts_rep_queued_s, np.float64)
-            ab = to_np(ys.ts_avg_batch, np.float64)
-            st_ts = to_np(ys.ts_st_est, np.float64)
-            for i, (_, _, arr, _) in enumerate(host_rounds):
-                fin = arr[np.isfinite(arr)]
-                t_round = float(fin.min()) if len(fin) else np.nan
-                rec.record_round(
-                    t=t_round, frames=frames_c[i], offloads=off_c[i],
-                    misses=miss_c[i], correct=corr_c[i], bw_est=bw_ts[i],
-                    bw_true=self.fabric.true_bandwidth(t_round),
-                    cell_busy_s=cb[i], cell_queued_s=cq[i],
-                    rep_busy_s=rb[i], rep_queued_s=rq[i],
-                    avg_batch=ab[i], server_time=st_ts[i],
-                    action_off=hist_ts[i])
-
-        if self.round_hook is not None:
-            act = self.fleet.action_table
-            y = {k: to_np(v) for k, v in ys._asdict().items() if v is not None}
-            for i, (start, b, _, valid) in enumerate(host_rounds):
-                dec = y["dec"][i]
-                off_s, off_p = np.nonzero(dec >= 0)
-                a = dec[off_s, off_p]
-                self.round_hook({
-                    "start": start,
-                    "theta": y["theta"][i].astype(np.float64),
-                    "res_idx": y["res_idx"][i].astype(np.int64),
-                    "cap": y["cap"][i].astype(np.int64),
-                    "n_off": y["n_off"][i].astype(np.int64),
-                    "n_frames": y["n_frames"][i].astype(np.int64),
-                    "off_stream": off_s.astype(np.int64),
-                    "off_pos": off_p.astype(np.int64),
-                    "off_res": a.astype(np.int64),
-                    # from the shared table: the decision grid holds the action index
-                    "off_kind": act.kind[a].astype(np.int8),
-                    "off_cut": act.cut[a].astype(np.int64),
-                    "esc": y["esc"][i][:, :b],
-                    "ok": y["ok"][i][:, :b],
-                    "lat": lat[i][:, :b],
-                    "valid": valid,
-                    "correct": corr[i].astype(np.int64),
-                    "bw_est": y["bw_est"][i].astype(np.float64),
-                    "lengths": y["lengths"][i].astype(np.int64),
-                    "overflow": y["overflow"][i],
-                    "inexact": y["inexact"][i],
-                })
+            prof.close_all()  # a round hook that raised leaves its spans open
         return self.metrics

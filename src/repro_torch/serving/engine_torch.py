@@ -3,7 +3,8 @@
 
 ``MultiStreamServer.process_streams`` runs plan -> transmit -> observe ->
 consume per round in host numpy (``serving/engine.py``).  This module is
-the same round re-expressed in fixed shapes, so one round is one static
+the same round re-expressed in fixed shapes (``serve`` runs it for a
+server built with ``backend="torch"``), so one round is one static
 sequence of tensor operations: on the card it is captured once as a CUDA
 graph and replayed once a round, with no host round trip between rounds;
 on the CPU the same step runs eagerly.  The numpy engine stays the
@@ -61,15 +62,17 @@ import torch
 from repro_torch.core.netsim import _FIXED_POINT_SWEEPS
 from repro_torch.core.threefry import fma_f32, jitter_factors, prng_key
 from repro_torch.device import resolve_device
-from repro_torch.obs.profile import aot_split
+from repro_torch.obs.profile import NULL_PROFILER, aot_split
 from repro_torch.policy.fleet_torch import (PaddedFleet, PlannerSpec, PlanOut,
                                             clear_fleet, consume_fleet, ewma_fold, extend_fleet,
-                                            plan_fleet, planner_tables, prune_fleet)
+                                            plan_fleet, planner_tables, prune_fleet, unpad_fleet)
+from repro_torch.serving import engine
+from repro_torch.serving.metrics import AggregateMetrics
 
 __all__ = ["EngineSpec", "EngineGroup", "EngineParams", "EngineConsts", "RoundInputs",
            "EngineCarry", "RoundTrace", "RoundLoop", "init_carry", "engine_consts",
            "make_engine", "simulate", "trace_lookup", "torch_unsupported", "supports_torch",
-           "spec_from_server", "params_from_server", "unrolled_rows", "MAX_UNROLLED_ROWS"]
+           "spec_from_server", "params_from_server", "serve", "unrolled_rows", "MAX_UNROLLED_ROWS"]
 
 _NEG = -torch.inf
 _INF = torch.inf
@@ -880,38 +883,37 @@ class RoundLoop:
                     buf.index_copy_(0, self.r, v.unsqueeze(0))
         self.r.add_(1)
 
-    def run(self, profiler=None):
+    def run(self, profiler=NULL_PROFILER):
         """Every round: warm up and capture the step (``aot_split``), then
-        one replay a round.  Returns ``(carry, RoundTrace | None)``; the
-        profiler gets ``"compile"`` (warm-up + capture) and ``"scan"``
-        (the rounds, the device waited for)."""
+        one replay a round, and wait for the device.  Returns ``(carry,
+        RoundTrace | None)``; the profiler gets ``"compile"`` (warm-up +
+        capture) and ``"scan"`` (the rounds)."""
         replay, _ = aot_split(self.step, *self.state, profiler=profiler)
         t0 = time.perf_counter()
         for _ in range(self.n_rounds):
             replay()
-        if profiler is not None:
-            if self.r.is_cuda:
-                torch.cuda.synchronize(self.r.device)
-            profiler.add("scan", time.perf_counter() - t0)
+        if self.r.is_cuda:
+            torch.cuda.synchronize(self.r.device)
+        profiler.add("scan", time.perf_counter() - t0)
         return self.carry, self.ys
 
 
 def make_engine(spec: EngineSpec):
     """The round loop closed over the static spec: ``run(params, carry,
-    inputs, profiler=None) -> (carry, RoundTrace | None)`` where ``inputs``
+    inputs, profiler) -> (carry, RoundTrace | None)`` where ``inputs``
     is a ``RoundInputs`` of (R, ...) stacked rounds on the engine's device.
     On the card one round is captured as a CUDA graph and replayed R times;
     a capture that fails raises (there is no eager fallback on the card).
     The carry is consumed (updated in place and returned)."""
 
-    def run(params: EngineParams, carry: EngineCarry, inputs: RoundInputs, profiler=None):
+    def run(params: EngineParams, carry: EngineCarry, inputs: RoundInputs, profiler=NULL_PROFILER):
         return RoundLoop(spec, params, carry, inputs).run(profiler)
 
     return run
 
 
 def simulate(spec: EngineSpec, params: EngineParams, inputs: RoundInputs,
-             carry: Optional[EngineCarry] = None, profiler=None):
+             carry: Optional[EngineCarry] = None, profiler=NULL_PROFILER):
     """One-shot convenience: init the carry (unless given), run every round."""
     if carry is None:
         carry = init_carry(spec, params)
@@ -1079,3 +1081,168 @@ def params_from_server(server, spec: EngineSpec, device=None) -> EngineParams:
         bw_init=f(server.fleet.bw_est),
         consts=engine_consts(spec, dev),
         **extra)
+
+
+# --------------------------------------------------------------------------- #
+# the server's replay on the round engine
+# --------------------------------------------------------------------------- #
+
+
+def serve(server, frames: np.ndarray, labels: Optional[np.ndarray], schedule) -> AggregateMetrics:
+    """``server.process_streams`` for a ``MultiStreamServer`` built with
+    ``backend="torch"``: precompute the tiers of every round on its device
+    (one fast pass, and the slow tier at each resolution over every frame,
+    compared with the labels in place), stack the rounds' inputs, run one
+    CUDA graph replay a round, then fold the final state back into the
+    server's host objects.  The tiers are ``serving.engine``'s
+    ``fast_pass`` and ``slow_pass_multires``, looked up at call time.
+    Decisions are held to the numpy loop by ``tests/test_torch_engine.py``."""
+    cfg = server.cfg
+    S, B, dev = server.n_streams, cfg.batch_size, server.device
+    resolutions = np.asarray(cfg.resolutions)
+    m = len(resolutions)
+    rec = getattr(server.telemetry, "recorder", None)
+    prof = server.profiler
+    spec = spec_from_server(server, collect="trace" if server.round_hook is not None else "metrics",
+                            telemetry=rec is not None)
+    params = params_from_server(server, spec, device=dev)
+    dt = spec.planner.dtype
+
+    # precompute on the device: both tiers are deterministic per frame,
+    # so this equals the numpy loop's escalated-only batching
+    t0 = time.perf_counter()
+    stage = engine.FrameStage(frames, B, dev)
+    rounds, host_rounds = [], []
+    for start, arr, valid in schedule.rounds(B):
+        b = arr.shape[1]
+        flat = stage.to_device(stage.fill(start, b))
+        fp, cf = engine.fast_pass(server.fast_forward, server.calibrate, flat,
+                                  use_fused=cfg.use_fused, platt_ab=cfg.platt_ab)
+        conf = cf.reshape(S, b).to(dt)
+        fast_ok = torch.zeros((S, b), dtype=torch.bool, device=dev)
+        slow_ok = torch.zeros((S, b, m), dtype=torch.bool, device=dev)
+        if labels is not None:
+            lab = torch.as_tensor(labels[:, start : start + b], device=dev)
+            fast_ok = fp.reshape(S, b) == lab
+            slow_ok = torch.stack([
+                engine.slow_pass_multires(server.slow_forward, flat, np.full(S * b, r)).reshape(S, b) == lab
+                for r in resolutions], dim=-1)
+        pad = B - b
+        arr_t = torch.as_tensor(np.pad(arr, ((0, 0), (0, pad)), constant_values=np.inf),
+                                device=dev).to(dt)
+        valid_t = torch.as_tensor(np.pad(valid, ((0, 0), (0, pad))), device=dev)
+        rounds.append((arr_t, valid_t,
+                       torch.nn.functional.pad(conf, (0, pad), value=torch.inf),
+                       torch.nn.functional.pad(fast_ok, (0, pad)),
+                       torch.nn.functional.pad(slow_ok, (0, 0, 0, pad))))
+        host_rounds.append((start, b, arr, valid))
+    prof.add("precompute", time.perf_counter() - t0)
+    if not rounds:
+        return server.metrics
+    inputs = RoundInputs(*(torch.stack(col) for col in zip(*rounds)))
+    carry, ys = simulate(spec, params, inputs, profiler=prof)
+    if carry.fp_bad is not None and bool(carry.fp_bad):
+        warnings.warn(
+            "a time-varying uplink fixed point failed to settle inside the round "
+            "engine; the numpy reference would have used its exact serial "
+            "fallback, so results may diverge", RuntimeWarning)
+
+    # fold the per-round counters and latencies into the same
+    # AggregateMetrics, and the final state into the host objects
+    t0 = time.perf_counter()
+    metrics, fabric, fleet = server.metrics, server.fabric, server.fleet
+    cells, pool = fabric.cells, fabric.pool
+    base_cb = np.asarray([c.uplink.busy_seconds for c in cells])
+    base_cq = np.asarray([c.uplink.queued_seconds for c in cells])
+    base_rb, base_rq = pool.busy_seconds.copy(), pool.queued_seconds.copy()
+    base_ctr = (metrics._frames.copy(), metrics._offloaded.copy(),
+                metrics._missed.copy(), metrics._correct.copy())
+
+    def to_np(t, dtype=None):
+        a = t.cpu().numpy()
+        return a if dtype is None else a.astype(dtype)
+
+    off, miss, corr = to_np(ys.off_counts), to_np(ys.miss_counts), to_np(ys.correct)
+    lat = to_np(ys.lat, np.float64)
+    for i, (start, b, arr, valid) in enumerate(host_rounds):
+        metrics.update_round(valid.sum(axis=1), off[i], miss[i], corr[i], lat[i][:, :b], valid)
+    for c, cell in enumerate(cells):
+        cell.uplink._busy_until = float(carry.cell_busy[c])
+        cell.uplink.n_transfers += int(carry.cell_n[c])
+        cell.uplink.busy_seconds += float(carry.cell_busy_s[c])
+        cell.uplink.queued_seconds += float(carry.cell_queued_s[c])
+    pool.busy_until[:] = to_np(carry.rep_busy, np.float64)
+    pool.n_jobs += to_np(carry.rep_n, np.int64)
+    pool.busy_seconds += to_np(carry.rep_busy_s, np.float64)
+    pool.queued_seconds += to_np(carry.rep_queued_s, np.float64)
+    pool.avg_batch = float(carry.avg_batch)  # occupancy EWMA (1.0 = serial)
+    fabric.placement._next = int(carry.rr_next)
+    fleet.bw_est[:] = to_np(carry.bw_est, np.float64)
+    arr_f, conf_f, lens = unpad_fleet(carry.fleet)
+    st = fleet.state
+    st.arrival = arr_f.astype(np.float64)
+    st.conf = conf_f.astype(np.float64)
+    st.stream_id = np.repeat(np.arange(S), lens)
+    st._rebuild_offsets()
+    prof.add("fold", time.perf_counter() - t0)
+
+    if rec is not None:
+        # the stacked telemetry columns into the recorder: cumulative
+        # counters from host cumsums of the per-round integer columns
+        # (numpy's running sums exactly), t and bw_true recomputed on the
+        # host from the same float64 arrival grid
+        frames_c = base_ctr[0] + np.cumsum([v.sum(axis=1) for _, _, _, v in host_rounds], axis=0)
+        off_c = base_ctr[1] + np.cumsum(off, axis=0, dtype=np.int64)
+        miss_c = base_ctr[2] + np.cumsum(miss, axis=0, dtype=np.int64)
+        corr_c = base_ctr[3] + np.cumsum(corr, axis=0, dtype=np.int64)
+        bw_ts = to_np(ys.ts_bw_est, np.float64)
+        hist_ts = to_np(ys.ts_off_hist, np.int64)
+        cb = base_cb + to_np(ys.ts_cell_busy_s, np.float64)
+        cq = base_cq + to_np(ys.ts_cell_queued_s, np.float64)
+        rb = base_rb + to_np(ys.ts_rep_busy_s, np.float64)
+        rq = base_rq + to_np(ys.ts_rep_queued_s, np.float64)
+        ab = to_np(ys.ts_avg_batch, np.float64)
+        st_ts = to_np(ys.ts_st_est, np.float64)
+        for i, (_, _, arr, _) in enumerate(host_rounds):
+            fin = arr[np.isfinite(arr)]
+            t_round = float(fin.min()) if len(fin) else np.nan
+            rec.record_round(
+                t=t_round, frames=frames_c[i], offloads=off_c[i],
+                misses=miss_c[i], correct=corr_c[i], bw_est=bw_ts[i],
+                bw_true=fabric.true_bandwidth(t_round),
+                cell_busy_s=cb[i], cell_queued_s=cq[i],
+                rep_busy_s=rb[i], rep_queued_s=rq[i],
+                avg_batch=ab[i], server_time=st_ts[i],
+                action_off=hist_ts[i])
+
+    if server.round_hook is not None:
+        act = fleet.action_table
+        y = {k: to_np(v) for k, v in ys._asdict().items() if v is not None}
+        for i, (start, b, _, valid) in enumerate(host_rounds):
+            dec = y["dec"][i]
+            off_s, off_p = np.nonzero(dec >= 0)
+            a = dec[off_s, off_p]
+            server.round_hook({
+                "start": start,
+                "theta": y["theta"][i].astype(np.float64),
+                "res_idx": y["res_idx"][i].astype(np.int64),
+                "cap": y["cap"][i].astype(np.int64),
+                "n_off": y["n_off"][i].astype(np.int64),
+                "n_frames": y["n_frames"][i].astype(np.int64),
+                "off_stream": off_s.astype(np.int64),
+                "off_pos": off_p.astype(np.int64),
+                "off_res": a.astype(np.int64),
+                # from the shared table: the decision grid holds the action index
+                "off_kind": act.kind[a].astype(np.int8),
+                "off_cut": act.cut[a].astype(np.int64),
+                "esc": y["esc"][i][:, :b],
+                "ok": y["ok"][i][:, :b],
+                "lat": lat[i][:, :b],
+                "valid": valid,
+                "correct": corr[i].astype(np.int64),
+                "bw_est": y["bw_est"][i].astype(np.float64),
+                "lengths": y["lengths"][i].astype(np.int64),
+                "overflow": y["overflow"][i],
+                "inexact": y["inexact"][i],
+            })
+    return metrics

@@ -10,8 +10,9 @@ and ``fabric_snapshot.json`` in every integer field (accuracies within
 must match the JAX numpy engine round for round (``_diff.assert_round_equal``:
 integer fields exact, theta within 1e-6, bandwidth estimates within 1e-2
 relative, latencies within ``LAT_ATOL``).  ``FrameStage``, which stages a
-round's frames for the card, fills one reused buffer with today's slice bit
-for bit (unpinned here); a CPU server slices as before and stages nothing.
+round's frames for the device, fills one reused buffer with today's slice
+bit for bit (unpinned here); a CPU server stages through it as the card
+does, one stage a serve and one staged round a round.
 
 The whole slice at a small size: a SMOKE ResNet fast tier (int8 QDQ
 weights) and a ``deit-smoke`` slow tier, converted from the same JAX
@@ -496,7 +497,7 @@ def test_live_batching_matches_numpy_engine_round_for_round(churn):
 
 @pytest.mark.parametrize("dtype", [np.float32, np.uint8])
 def test_frame_stage_fills_todays_slice_in_one_reused_buffer(dtype):
-    """``FrameStage``, the card's staging of a round's frames (unpinned
+    """``FrameStage``, the loop's staging of a round's frames (unpinned
     here), gives each round ``frames[:, s:s+b].reshape(S*b, ...)`` bit for
     bit, a shorter last round too, always in the same buffer's first rows,
     never aliasing the pool; ``to_device`` to the CPU hands over the
@@ -519,18 +520,38 @@ def test_frame_stage_fills_todays_slice_in_one_reused_buffer(dtype):
 
 
 def test_cpu_server_slices_frames_as_before(monkeypatch):
-    """On the CPU the loop makes no ``FrameStage``: no ``staged`` count,
-    and the frame copy counts among the round's ``syncs``."""
+    """On the CPU the loop stages its frames through a ``FrameStage``, as
+    on the card: one stage a serve, an unpinned buffer, ``staged`` 1 a
+    round, and the fast tier gets each round's frames as the slice
+    ``frames[:, s:s+b].reshape(S*b, ...)`` gives them."""
     from repro_torch.obs import Telemetry
 
-    made = []
-    monkeypatch.setattr(teng, "FrameStage", lambda *a, **kw: made.append(a))
+    made, seen = [], []
+
+    class Kept(teng.FrameStage):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    fast_pass = teng.fast_pass
+
+    def logged(fast_forward, calibrate, images, **kw):
+        seen.append(images.numpy().copy())
+        return fast_pass(fast_forward, calibrate, images, **kw)
+
+    monkeypatch.setattr(teng, "FrameStage", Kept)
+    monkeypatch.setattr(teng, "fast_pass", logged)
+    S, N = 4, 40
+    imgs, labels = synthetic_streams(S, N, seed=2)
     tel = Telemetry(record=False, profile=True)
-    _fabric_server(teng, tnet, tfab, tst, 4, device="cpu", telemetry=tel).process_streams(
-        *synthetic_streams(4, 40, seed=2))
+    _fabric_server(teng, tnet, tfab, tst, S, device="cpu", telemetry=tel).process_streams(imgs, labels)
     prof = tel.profiler
-    assert made == [] and "staged" not in prof.counters
-    assert prof.n_rounds == 3 and all(v >= 3 for v in prof.counters["syncs"].values())
+    assert len(made) == 1 and not made[0].buf.is_pinned()
+    assert prof.n_rounds == 3 and prof.counters["staged"] == {0: 1, 1: 1, 2: 1}
+    assert len(seen) == 3
+    for start, got in zip((0, 16, 32), seen):  # rounds of 16, 16 and 8 frames a stream
+        want = imgs[:, start : start + 16].reshape(-1, *imgs.shape[2:])
+        assert got.shape == want.shape and got.tobytes() == want.tobytes(), start
 
 
 def test_multistream_refuses_what_is_not_ported():

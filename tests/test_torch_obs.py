@@ -14,14 +14,18 @@ with continuous batching; the same under churn): every recorder series is
 bit-equal, floats included, since both round loops are the same float64
 numpy on bit-equal confidences; the tracer's Chrome trace and miss
 attribution are equal; the profiler logs each round's spans once, inside
-their round, with ``syncs`` at 5 + k (k distinct planned resolutions)
-in a round that escalates and 3 in one that does not, and opens
-``serving.*`` ranges under ``torch.profiler``; and telemetry on and off
-give the same metrics (zero observer effect).
+their round, with ``syncs`` at 4 + k (k distinct planned resolutions)
+in a round that escalates and 2 in one that does not, as on the card, and
+opens ``serving.*`` ranges under ``torch.profiler``; and telemetry on and
+off give the same metrics (zero observer effect).  With telemetry off the
+engines call ``NULL_PROFILER``, whose every method does nothing, and no
+``PhaseProfiler`` method at all.
 """
 import collections
 import contextlib
+import inspect
 import json
+import re
 
 import numpy as np
 import pytest
@@ -35,7 +39,10 @@ import repro.slowtier as jst
 import repro_torch.core.netsim as tnet
 import repro_torch.net as tfab
 import repro_torch.obs as tobs
+import repro_torch.policy.fleet as tfleet
 import repro_torch.serving as tsrv
+import repro_torch.serving.engine as teng
+import repro_torch.serving.engine_torch as tet
 import repro_torch.slowtier as tst
 from repro.serving.synthetic import synthetic_tiers as jax_synthetic_tiers
 from repro_torch.serving.synthetic import synthetic_streams, synthetic_tiers
@@ -47,6 +54,8 @@ LIVE = (0.03125, 0.0078125)  # LinearBatch(base, per_item), float32-exact
 # only in a round that escalates
 LOOP_SPANS = ("slice", "h2d", "fast", "fast_wait", "plan", "gate", "transmit", "fold", "hook")
 SLOW_SPANS = ("slow", "slow_wait")
+# the profiler methods the engines and the planner call
+PROFILER_CALLS = ("open_round", "open", "switch", "close", "close_all", "count", "add", "phase")
 
 
 # ------------------------------ recorder ----------------------------------- #
@@ -194,12 +203,12 @@ def test_tracer_records_equal_reference(tmp_path):
 # ------------------------------ the engine --------------------------------- #
 
 
-def _server(side, topology, telemetry=None):
+def _server(side, topology, telemetry=None, backend="numpy"):
     net, fab, _, srv, st, tiers = SIDES[side]
     fast, slow, cal = tiers()
     cfg = srv.ServeConfig(resolutions=(4, 8), acc_server=(0.7, 0.99), batch_size=16,
                           frame_rate=32.0, deadline=0.2)
-    kw = dict(device="cpu") if side == "torch" else {}
+    kw = dict(device="cpu", backend=backend) if side == "torch" else {}
     if topology == "degenerate":
         up = net.Uplink(bandwidth_bps=net.mbps(50.0), latency=0.05, server_time=cfg.server_time)
         return srv.MultiStreamServer(cfg, fast, slow, cal, up, n_streams=4, telemetry=telemetry, **kw)
@@ -214,8 +223,10 @@ def _server(side, topology, telemetry=None):
                                  policy="cbo", telemetry=telemetry, **kw)
 
 
-def _run(side, topology, telemetry=None):
-    server = _server(side, topology, telemetry)
+def _run(side, topology, telemetry=None, backend="numpy", hooks=None):
+    server = _server(side, topology, telemetry, backend)
+    if hooks is not None:
+        server.round_hook = hooks.append
     S = server.n_streams
     imgs, labels = synthetic_streams(S, 64, seed=0)
     schedule = None
@@ -340,9 +351,9 @@ def test_syncs_count_each_blocking_transfer(topology):
         if len(esc_streams):
             k = len(np.unique(hook["res_idx"][esc_streams]))  # frame actions: one resolution each
             saw_k.add(k)
-            assert syncs[r] == 5 + k, (r, syncs[r], k)
+            assert syncs[r] == 4 + k, (r, syncs[r], k)
         else:
-            assert syncs[r] == 3, (r, syncs[r])
+            assert syncs[r] == 2, (r, syncs[r])
     assert saw_k
 
 
@@ -391,6 +402,78 @@ def test_profiler_spans_unit():
     assert set(p.summarize()) == {"a", "b", "c", "d", "e", "total_s"}
     p.reset()
     assert not p and p.spans == [] and p.counters == {} and p.n_rounds == 0
+
+
+def test_engines_call_only_the_null_profilers_methods():
+    """Every method the serving loop, the round engine, the planner and
+    ``aot_split`` call on their profiler is one of ``PROFILER_CALLS``,
+    which both profilers have with the same parameters."""
+    src = "\n".join(inspect.getsource(m) for m in (teng, tet, tfleet))
+    src += inspect.getsource(tobs.profile.aot_split)
+    called = set(re.findall(r"(?<![\w.])(?:self\.)?prof(?:iler)?\.(\w+)\(", src))
+    assert called == set(PROFILER_CALLS)
+    for name in PROFILER_CALLS:
+        full = inspect.signature(getattr(tobs.PhaseProfiler, name)).parameters
+        null = inspect.signature(getattr(tobs.NullProfiler, name)).parameters
+        assert list(full) == list(null), name
+
+
+@pytest.mark.parametrize("name", PROFILER_CALLS)
+def test_null_profiler_reads_no_clock_and_opens_no_range(name, monkeypatch):
+    """Each method of ``NULL_PROFILER`` returns at once: no clock read, no
+    ``record_function`` range under a recording ``torch.profiler``, nothing
+    kept; ``phase`` hands back one shared context that does nothing."""
+    def boom(*args, **kw):
+        raise AssertionError("read a clock or opened a range")
+
+    monkeypatch.setattr(tobs.profile, "time", type("Clockless", (), {"perf_counter": staticmethod(boom)}))
+    monkeypatch.setattr(torch.profiler, "record_function", boom)
+    args = {"open": ("x",), "switch": ("x",), "count": ("syncs", 2), "add": ("x", 0.5),
+            "phase": ("x",)}.get(name, ())
+    null = tobs.NULL_PROFILER
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with pytest.raises(AssertionError, match="clock"):
+            tobs.PhaseProfiler().open("x")  # the patches bite the real profiler
+        out = getattr(null, name)(*args)
+        if name == "phase":
+            assert out is null.phase("y")
+            with out:
+                pass
+        else:
+            assert out is None
+    assert tobs.profile._ranges_open == 0
+    assert not hasattr(null, "__dict__")
+
+
+@pytest.mark.parametrize("backend", ["numpy", "torch"])
+@pytest.mark.parametrize("topology", ["degenerate", "fabric", "churn"])
+def test_telemetry_off_calls_no_phase_profiler(topology, backend, monkeypatch):
+    """A CPU server without telemetry sends its spans to ``NULL_PROFILER``
+    and calls no ``PhaseProfiler`` method (each made to raise), and serves
+    the same metrics and round hooks as with ``Telemetry(record=False,
+    profile=True)``."""
+    tel = tobs.Telemetry(record=False, profile=True)
+    on_hooks, off_hooks = [], []
+    m_on, s_on = _run("torch", topology, tel, backend, on_hooks)
+    assert s_on.profiler is tel.profiler and tel.profiler.n_rounds == (4 if backend == "numpy" else 0)
+
+    def refuse(name):
+        def call(*args, **kw):
+            raise AssertionError(f"PhaseProfiler.{name} called with telemetry off")
+        return call
+
+    for name in PROFILER_CALLS:
+        monkeypatch.setattr(tobs.PhaseProfiler, name, refuse(name))
+    m_off, s_off = _run("torch", topology, None, backend, off_hooks)
+    assert s_off.profiler is s_off.fleet.profiler is tobs.NULL_PROFILER
+    assert m_off.summary() == m_on.summary()
+    for k in ("_frames", "_offloaded", "_missed", "_correct"):
+        np.testing.assert_array_equal(getattr(m_off, k), getattr(m_on, k))
+    assert len(off_hooks) == len(on_hooks) == 4
+    for r, (a, b) in enumerate(zip(on_hooks, off_hooks)):
+        assert set(a) == set(b), r
+        for k in a:
+            assert np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes(), (r, k)
 
 
 def test_fabric_detail_equal_reference():
