@@ -6,13 +6,14 @@
 Needs a CUDA GPU, the CUDA toolkit (``nvcc``) and this checkout's ``src/``;
 without them it exits non-zero before printing any result.  Phases:
 
-  1. card: ``nvidia-smi`` name and power limit; build the port's five
+  1. card: ``nvidia-smi`` name and power limit; build the port's six
      kernels, one ``nvcc`` per source, all started together; count the
      tensor-core instructions of the flash-attention kernels in the SASS,
      the int8-matmul kernel's IMMA and PRMT, the int8-KV decode
      kernel's I2F (none allowed), PRMT and HMMA, the calib-gate
-     kernel's 128-bit loads and cluster barriers, and the conv epilogue's
-     FMUL, FADD and FFMA (none allowed); print the int8 matmul's
+     kernel's 128-bit loads and cluster barriers, the conv epilogue's
+     FMUL, FADD and FFMA (none allowed), and the 3xTF32 dense product's
+     HGMMA (wgmma) with its widths' registers and spills; print the int8 matmul's
      and the decode kernel's launch plans (tiles, splits, registers,
      blocks a SM, cp.async stages, bytes in flight);
   2. each kernel against its plain PyTorch version on the card, at the
@@ -24,7 +25,12 @@ without them it exits non-zero before printing any result.  Phases:
      matmul ``torch._int_mm``'s and, for the int8-KV decode, SDPA's on a
      bf16 cache dequantized beforehand, as yardsticks); the conv epilogue
      bit-equal at ResNet-50's 20 call kinds at 128 frames, timed against
-     its bytes bound and the eager sequence it replaces;
+     its bytes bound and the eager sequence it replaces; the 3xTF32 dense
+     product against float64 and its plain version at DINOv3 ViT-H+'s seven
+     products at 201 and 2,010 rows, DeiT-B's at 1,980 and Swin-B's at an
+     8-frame slow call's rows, timed against its operations bound,
+     its plain version and ``torch.matmul`` in f32, and one DINOv3 ViT-H+
+     forward at 12 frames with the kernel and with ``F.linear``;
   3. path 1: ``CascadeServer(use_fused=True)`` serving 256 synthetic
      224 px frames with two full-width ResNet-50 tiers (random weights from
      seeds; the fast tier int8 through ``qdq_tree``), after one fast pass
@@ -114,7 +120,9 @@ without them it exits non-zero before printing any result.  Phases:
      read just after (the conv epilogue's over the whole path, against the
      calls its ResNet forwards on the card owe: one a conv, 53 a ResNet-50
      forward, none in paths 4 and 8; some under autograd in paths 10 and
-     11); then the same stream (paths 4 and 8: 8 more decode
+     11; the 3xTF32 product's over the whole path, against the products
+     its f32 model calls on the card owe: 51 a DeiT-B forward, 101 a
+     Swin-B one, none in paths 1, 4 and 8); then the same stream (paths 4 and 8: 8 more decode
      steps; path 5: the split fleet; path 6: the telemetry run, one cbo
      planning call at 131,072 streams; path 7: the torch run, and 8 rounds
      at 100,000 streams) runs again under ``torch.profiler`` for the
@@ -437,6 +445,118 @@ class EpilogueTally:
               f" on the card ({self.owed_grad} of the calls under autograd)")
 
 
+def _records(params, *tensors) -> bool:
+    """Whether autograd records a product of these: grad on, and a
+    parameter or an input that requires grad (``layers.kernel_takes``)."""
+    import torch
+
+    return torch.is_grad_enabled() and (any(t.requires_grad for t in tensors) or any(p.requires_grad for p in params))
+
+
+class LinearTally:
+    """The 3xTF32 dense product's launches in each path against the
+    products its model calls on the card owe, counted from each model's
+    configuration, not from the routing rule: the (N, K) of each product a
+    call makes, those with N and K multiples of 4 owed.  A ViT forward
+    makes 4 a block, the stem and the head (DeiT's distillation head too:
+    51 for DeiT-B), DINOv3 5 a block, the stem and the head (162 for
+    ViT-H+), Swin 4 a block, the stem, the merges and the head (101 for
+    Swin-B; the head alone, which runs in f32, where the weights are bf16),
+    a DiT block its MLP's 2, a language model's FFN its MLP's 3 (SwiGLU) or
+    2 (GELU), and its MoE's shared and dense experts' likewise.  A call owes
+    them where it runs on the card in f32 with rows to multiply and nothing
+    for autograd to record; ResNet owes none (its head is ``F.linear``).
+    ``path`` zeroes the kernel's ``launches`` and the tally just before the
+    path and checks them just after; ``paths`` keeps each path's launches."""
+
+    def __init__(self, lk):
+        import torch
+
+        from repro_torch.models import dinov3, dit, swin, transformer, vit
+
+        f32 = torch.float32
+        self.kernel = lk.linear_3xtf32
+        self.owed = 0
+        self.calls: dict[str, int] = {}
+        self.paths: dict[str, int] = {}
+
+        def owe(kind: str, shapes) -> None:
+            n = sum(N % 4 == 0 and K % 4 == 0 for N, K in shapes)
+            self.owed += n
+            self.calls[kind] = self.calls.get(kind, 0) + n
+
+        def mlp(d: int, f: int, act: str) -> list:
+            return [(f, d)] * (2 if act == "swiglu" else 1) + [(d, f)]
+
+        def ffn_weights(mp) -> list:
+            return [tuple(mp[k].shape) for k in ("wg", "wu", "wd", "wi", "wo") if k in mp]
+
+        vit_forward, dino_forward = vit.ViT.forward, dinov3.DINOv3.forward
+        swin_forward, dit_layer, ffn = swin.swin_forward, dit.dit_layer, transformer._ffn
+
+        def vit_tallied(model, images):
+            c = model.cfg
+            if (images.is_cuda and images.shape[0] > 0 and model.patch_embed.w.dtype == f32
+                    and not _records(model.parameters(), images)):
+                d = c.d_model
+                block = [(3 * d, d), (d, d)] + mlp(d, c.d_ff, "gelu")
+                owe(c.name, block * c.n_layers + [(d, c.patch**2 * 3)] + [(c.n_classes, d)] * (1 + c.distill_token))
+            return vit_forward(model, images)
+
+        def dino_tallied(model, images):
+            c = model.cfg
+            if (images.is_cuda and images.shape[0] > 0 and model.patch_embed.w.dtype == f32
+                    and not _records(model.parameters(), images)):
+                d = c.d_model
+                block = [(3 * d, d), (d, d)] + mlp(d, c.d_ff, "swiglu")
+                owe(c.name, block * c.n_layers + [(d, c.patch**2 * 3), (c.n_classes, d)])
+            return dino_forward(model, images)
+
+        def swin_tallied(m, images, c):
+            if images.is_cuda and images.shape[0] > 0 and not _records(m.parameters(), images):
+                shapes = [(c.n_classes, c.dims[-1])]
+                if m["patch_embed"]["w"].dtype == f32:
+                    shapes.append((c.dims[0], c.patch**2 * 3))
+                    for i, (dep, d) in enumerate(zip(c.depths, c.dims)):
+                        shapes += ([(3 * d, d), (d, d)] + mlp(d, 4 * d, "gelu")) * dep
+                        shapes += [(c.dims[i + 1], 4 * d)] if i + 1 < len(c.dims) else []
+                owe(c.name, shapes)
+            return swin_forward(m, images, c)
+
+        def dit_tallied(p, x, c, n_heads):
+            if (x.is_cuda and x.numel() > 0 and x.dtype == f32
+                    and not _records(p["mlp"].parameters(), x, c)):
+                owe("dit", ffn_weights(p["mlp"]))
+            return dit_layer(p, x, c, n_heads)
+
+        def ffn_tallied(p, x, cfg, groups=1):
+            if x.is_cuda and x.numel() > 0 and x.dtype == f32:
+                mlps = [p["moe"][k] for k in ("shared", "dense") if k in p["moe"]] if "moe" in p else [p["mlp"]]
+                for mp in mlps:
+                    if not _records(mp.parameters(), x):
+                        owe(cfg.name, ffn_weights(mp))
+            return ffn(p, x, cfg, groups)
+
+        vit.ViT.forward, dinov3.DINOv3.forward = vit_tallied, dino_tallied
+        swin.swin_forward, dit.dit_layer, transformer._ffn = swin_tallied, dit_tallied, ffn_tallied
+
+    @contextlib.contextmanager
+    def path(self, label: str, launches: int | None = None):
+        """``launches``: what the path must launch (0 where its models run
+        in bf16 or only ResNet's)."""
+        self.kernel.launches = 0
+        self.owed, self.calls = 0, {}
+        yield
+        got = self.kernel.launches
+        check(got == self.owed, f"{label}: linear_3xtf32 launched {got} times; its f32 products on the"
+              f" card owe {self.owed} ({self.calls})")
+        check(launches is None or got == launches, f"{label}: linear_3xtf32 launched {got} times, expected {launches}")
+        launches = got
+        self.paths[label] = launches
+        print(f"  {label}: linear_3xtf32 launched {launches} times, the products owed by "
+              + (", ".join(f"{k} {n}" for k, n in sorted(self.calls.items())) or "no f32 call on the card"))
+
+
 def build_phase(libraries) -> None:
     """Phase 1: build every kernel's library, one ``nvcc`` per source
     started together, and show what ``ptxas`` made."""
@@ -613,6 +733,180 @@ def ce_sass(ce_kernel) -> dict[str, dict[str, int]]:
         check(c["FFMA"] == 0 and c["FMUL"] > 0 and c["FADD"] > 0,
               f"conv_epilogue {name} contracts the affine into FFMA or lacks its FMUL and FADD: {c}")
     return counts
+
+
+def linear_sass(lk) -> dict[str, dict[str, int]]:
+    """Phase 1: each width of the 3xTF32 dense product runs on wgmma:
+    count HGMMA per instantiation (BN) and fail on one without; print each
+    width's launch plan (ring stages, shared memory, registers, spills)."""
+    import re
+
+    counts = {}
+    for fn, c in sass_counts(lk.LIBRARY, ("HGMMA",)).items():
+        m = re.search(r"linear_3xtf32_kernelILi(\d+)E", fn)
+        counts[f"BN={m.group(1)}" if m else fn] = c["HGMMA"]
+    print("  cuobjdump -sass linear_3xtf32, HGMMA instructions per width:",
+          "; ".join(f"{k}: {n}" for k, n in sorted(counts.items())))
+    for bn in lk.BNS:
+        check(counts.get(f"BN={bn}", 0) > 0, f"linear_3xtf32 BN={bn} has no HGMMA")
+        plan = lk.launch_plan(0, bn)
+        print(f"  linear_3xtf32 BN={bn}: {plan.bm} x {plan.bn} tile, {plan.stages} stages of {plan.bk} f32,"
+              f" {plan.smem_bytes} B shared, {plan.registers} registers at launch, {plan.local_bytes} B spilled,"
+              f" {plan.blocks_per_sm} block(s) a SM")
+        check(plan.local_bytes == 0 and plan.blocks_per_sm >= 1, f"linear_3xtf32 BN={bn}: {plan}")
+    return counts
+
+
+LINEAR_TOL = 2.0**-20  # tests/test_torch_linear_3xtf32.py: of sum |x||w| + |b|, against float64
+# kernel against its plain version on the same inputs, of the same scale: the
+# same three products, summed in another order (each within 3.0e-7 of float64)
+LINEAR_REF_TOL = 2.0**-21
+
+
+def linear_bound(M, N, K):
+    """Least time (ms) for the card, and what bounds it: three TF32
+    products, 3 · 2·M·N·K at the dense TF32 peak, against x, w, b read
+    once and y written once (``kernels/cost.py``)."""
+    from repro_torch.kernels.cost import linear_cost
+
+    flops, n_bytes = linear_cost(M, N, K, True)
+    t_ops, t_bytes = 3 * flops / TF32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def linear_phase(torch, lk, linear_3xtf32_ref):
+    """Phase 2: the 3xTF32 dense product at DINOv3 ViT-H+'s seven products
+    (32 blocks' qkv, wo, wg, wu, wd; the stem and the head) at 201 rows
+    (one frame) and 2,010 (ten), DeiT-B's six at 1,980 (ten frames) and
+    Swin-B's 20 (4 a stage, the stem, the merges) at the rows of an
+    8-frame slow call (25,088 at the first stage down to 392 at the
+    last): within ``LINEAR_TOL`` of
+    float64 and ``LINEAR_REF_TOL`` of its plain version on the same
+    inputs, the kernel's device time against its bound, the plain
+    version's and ``torch.matmul``'s in f32 (TF32 off: cuBLAS's SIMT
+    product, the library yardstick; the port never calls it)."""
+    from repro_torch.configs.deit_b import FULL as DEIT_B
+    from repro_torch.configs.dinov3_vith16plus import FULL as DINOV3
+    from repro_torch.configs.swin_b import FULL as SWIN_B
+
+    d, f = DINOV3.d_model, DINOV3.d_ff
+    dino = [("qkv", 3 * d, d), ("wo", d, d), ("wg", f, d), ("wu", f, d), ("wd", d, f),
+            ("stem", d, DINOV3.patch**2 * 3), ("head", DINOV3.n_classes, d)]
+    e, fe = DEIT_B.d_model, DEIT_B.d_ff
+    deit = [("qkv", 3 * e, e), ("wo", e, e), ("wi", fe, e), ("mlp wo", e, fe), ("stem", e, DEIT_B.patch**2 * 3),
+            ("head", DEIT_B.n_classes, e)]
+    cases = ([(f"DINOv3 {n}", M, N, K) for M in (201, 2010) for n, N, K in dino]
+             + [(f"DeiT-B {n}", 1980, N, K) for n, N, K in deit])
+    side = SWIN_B.img_res // SWIN_B.patch
+    rows = [8 * (side >> i) ** 2 for i in range(len(SWIN_B.dims))]  # an 8-frame call's tokens a stage
+    cases.append(("Swin-B stem", rows[0], SWIN_B.dims[0], SWIN_B.patch**2 * 3))
+    for i, c in enumerate(SWIN_B.dims):
+        cases += [(f"Swin-B s{i} {n}", rows[i], N, K) for n, N, K in (("qkv", 3 * c, c), ("wo", c, c),
+                                                                         ("wi", 4 * c, c), ("mlp wo", c, 4 * c))]
+        if i + 1 < len(SWIN_B.dims):
+            cases.append((f"Swin-B s{i} merge", rows[i + 1], SWIN_B.dims[i + 1], 4 * c))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, max_err = [], 0.0  # max_err: the largest |kernel - float64|
+    print("linear_3xtf32 vs float64 and vs its plain version (error over sum |x||w| + |b|); device time per"
+          " call from the profiler;"
+          " torch.matmul is f32 with TF32 off, the bias not added; TFLOP/s count 2MNK once:")
+    try:
+        for name, M, N, K in cases:
+            x = torch.randn(M, K, generator=g, device="cuda")
+            w = torch.randn(N, K, generator=g, device="cuda") / K**0.5
+            b = torch.randn(N, generator=g, device="cuda") * 0.02
+            wt = w.t()
+            with torch.inference_mode():
+                y = lk.linear_3xtf32(x, w, b)
+                want = x.double() @ w.double().T + b.double()
+                scale = (x.abs() @ w.abs().T + b.abs()).double()
+                err = float(((y.double() - want).abs() / scale).max())
+                check(err <= LINEAR_TOL, f"linear_3xtf32 {name} {(M, N, K)}: {err:.3e} > {LINEAR_TOL:.3e}")
+                ref_err = float(((y - linear_3xtf32_ref(x, w, b)).double().abs() / scale).max())
+                check(ref_err <= LINEAR_REF_TOL,
+                      f"linear_3xtf32 {name} {(M, N, K)}: {ref_err:.3e} from its plain version > {LINEAR_REF_TOL:.3e}")
+                max_err = max(max_err, float((y.double() - want).abs().max()))
+                dev = device_ms(lambda: lk.linear_3xtf32(x, w, b)) or cuda_ms(lambda: lk.linear_3xtf32(x, w, b), 50, 5)
+                plain = device_ms(lambda: linear_3xtf32_ref(x, w, b))
+                lib = device_ms(lambda: torch.matmul(x, wt)) or cuda_ms(lambda: torch.matmul(x, wt), 50, 5)
+            bound_ms, bound_by = linear_bound(M, N, K)
+            bn = lk.tile_plan(M, N, torch.cuda.get_device_properties(0).multi_processor_count)
+            out.append(dict(case=name, shape=(M, N, K), bn=bn, ms=dev, plain_ms=plain, library_ms=lib,
+                            bound_ms=bound_ms, bound_by=bound_by, err=err, ref_err=ref_err))
+            tflops = 2 * M * N * K / (dev * 1e9)
+            print(f"  {name:17s} {str((M, N, K)):20s} BN {bn:3d} err {err:.2e} (plain {ref_err:.2e}) | kernel {_us(dev)}"
+                  f" ({tflops:6.1f} TFLOP/s, {bound_ms / dev:6.1%} of bound) | plain {_us(plain)}"
+                  f" | torch.matmul {_us(lib)} | bound {_us(bound_ms)} ({bound_by})")
+            del x, w, b, y, want, scale
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for label, sel in (("DINOv3 at 2,010 rows (32 x qkv..wd + stem + head)", lambda r: r["case"].startswith("DINOv3")
+                        and r["shape"][0] == 2010),
+                       ("DINOv3 at 201 rows", lambda r: r["case"].startswith("DINOv3") and r["shape"][0] == 201)):
+        per = [r for r in out if sel(r)]
+        n_calls = [32 if r["case"].split()[-1] in ("qkv", "wo", "wg", "wu", "wd") else 1 for r in per]
+        tot = {k: sum(r[k] * n for r, n in zip(per, n_calls)) if all(r[k] for r in per) else None
+               for k in ("ms", "library_ms", "bound_ms")}
+        print(f"  one forward's 162 products, {label}: kernel {_us(tot['ms'])} | torch.matmul f32"
+              f" {_us(tot['library_ms'])} | bound {_us(tot['bound_ms'])}")
+    return out, max_err
+
+
+def dinov3_linear_forward(torch, lk) -> dict:
+    """Phase 2: one DINOv3 ViT-H+ FULL forward (f32, weights drawn on the
+    card) at 12 frames with the 3xTF32 kernel (162 launches) and with
+    ``F.linear`` in its place (TF32 off): device time of each, and the
+    logits' difference over the largest logit."""
+    import math
+
+    from repro_torch.configs.dinov3_vith16plus import FULL as DINOV3
+    from repro_torch.models import layers
+    from repro_torch.models.dinov3 import DINOv3
+
+    model = DINOv3(DINOV3, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    with torch.no_grad():  # tests/test_torch_dinov3.py's draw: every leaf reaches the logits
+        for name, p in model.named_parameters():
+            z = torch.randn(p.shape, generator=g, device="cuda")
+            if p.ndim == 2 and name != "reg_tokens":
+                p.copy_(z / math.sqrt(p.shape[1]))
+            elif name.endswith((".ls1", ".ls2")):
+                p.copy_(z)
+            elif name.endswith(".scale"):
+                p.copy_(1 + 0.1 * z)
+            else:
+                p.copy_(0.02 * z)
+    images = torch.randn(12, 224, 224, 3, generator=g, device="cuda")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    takes = layers.kernel_takes
+
+    def run():
+        with torch.inference_mode():
+            return model(images)
+
+    try:
+        before = lk.linear_3xtf32.launches
+        on = run()
+        check(lk.linear_3xtf32.launches - before == 162, f"DINOv3 forward: {lk.linear_3xtf32.launches - before}"
+                                                         " linear_3xtf32 launches, expected 162")
+        on_ms = device_ms(run, iters=3)
+        layers.kernel_takes = lambda *a: False
+        before = lk.linear_3xtf32.launches
+        off = run()
+        check(lk.linear_3xtf32.launches == before, "DINOv3 forward with F.linear launched the kernel")
+        off_ms = device_ms(run, iters=3)
+    finally:
+        layers.kernel_takes = takes
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    rel = float((on - off).abs().max()) / float(off.abs().max())
+    check(rel <= 1e-4, f"DINOv3 forward: kernel vs F.linear logits {rel:.3e} > 1e-4 (slow_logits' limit)")
+    print(f"DINOv3 ViT-H+ FULL forward, 12 frames, f32: device {_us(on_ms)} with linear_3xtf32 (162 launches)"
+          f" | {_us(off_ms)} with F.linear (cuBLAS f32) | logits differ by {rel:.3e} of the largest")
+    del model
+    return dict(ms=on_ms, f_linear_ms=off_ms, rel_err=rel)
 
 
 def resnet50_epilogue_calls(N: int) -> list:
@@ -3281,6 +3575,8 @@ def main() -> int:
     from repro_torch.kernels.int8_kv_decode.ref import decode_attention_ref
     from repro_torch.kernels.int8_matmul import kernel as i8_kernel
     from repro_torch.kernels.int8_matmul import ref as i8_ref
+    from repro_torch.kernels.linear_3xtf32 import kernel as lk
+    from repro_torch.kernels.linear_3xtf32.ref import linear_3xtf32_ref
     from repro_torch.models.resnet import ResNet
     from repro_torch.models.vit import ViT
     from repro_torch.quant.quantize import qdq_tree
@@ -3293,17 +3589,20 @@ def main() -> int:
         clock[0] = now
 
     tally = EpilogueTally(ce_kernel)
+    lin = LinearTally(lk)
 
     # ---- 1. card and build ------------------------------------------------ #
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
-    build_phase([cg_kernel.LIBRARY, fa_kernel.LIBRARY, i8_kernel.LIBRARY, kv_kernel.LIBRARY, ce_kernel.LIBRARY])
+    build_phase([cg_kernel.LIBRARY, fa_kernel.LIBRARY, i8_kernel.LIBRARY, kv_kernel.LIBRARY, ce_kernel.LIBRARY,
+                 lk.LIBRARY])
     flash_sass(fa_kernel.LIBRARY)
     int8_sass(i8_kernel)
     kv_sass(kv_kernel)
     calib_sass(cg_kernel)
     ce_sass(ce_kernel)
+    linear_sass(lk)
     phase_done("1 (build)")
 
     # ---- 2. kernels vs plain versions ------------------------------------- #
@@ -3312,6 +3611,8 @@ def main() -> int:
     i8_rows, i8_err = int8_phase(torch, i8_kernel, i8_ref)
     kv_rows, kv_err = kv_phase(torch, kv_kernel, decode_attention_ref)
     ce_rows, ce_whole = conv_epilogue_phase(torch, ce_kernel, conv_epilogue_ref)
+    li_rows, li_err = linear_phase(torch, lk, linear_3xtf32_ref)
+    dinov3_linear_forward(torch, lk)
     phase_done("2 (kernels vs plain versions)")
 
     # ---- 3. path 1: ResNet-50 slow tier ----------------------------------- #
@@ -3327,7 +3628,7 @@ def main() -> int:
     warm_up("path 1", fast, slow, frames)
     fast_pass_kernels(fast, frames)
     n_batches = -(-N_FRAMES // BATCH)
-    with tally.path("path 1"):
+    with tally.path("path 1"), lin.path("path 1", launches=0):
         serve_phase("path 1, ResNet-50 FULL fast and slow tiers", fast, slow, frames, labels,
                     {"calib_gate": (cg_kernel.calib_gate, n_batches),
                      "flash_attention": (fa_kernel.flash_attention, 0),
@@ -3340,7 +3641,7 @@ def main() -> int:
     deit = ViT(DEIT_B, generator=torch.Generator().manual_seed(1), device="cuda")
     print(f"set-up: DeiT-B FULL weights ({sum(p.numel() for p in deit.parameters())} parameters)"
           f" {time.perf_counter() - t0:.2f} s")
-    with tally.path("path 2"):
+    with tally.path("path 2"), lin.path("path 2"):
         warm_up("path 2", fast, deit, frames)
         serve_phase("path 2, ResNet-50 FULL fast tier, DeiT-B FULL slow tier", fast, deit,
                     frames, labels,
@@ -3358,7 +3659,7 @@ def main() -> int:
     ms_frames = data["frames"].reshape(N_STREAMS, STREAM_FRAMES, *data["frames"].shape[1:])
     ms_labels = data["labels"].reshape(N_STREAMS, STREAM_FRAMES)
     print(f"set-up: {n_ms} frames ({ms_frames.nbytes / 1e6:.0f} MB) {time.perf_counter() - t0:.2f} s")
-    with tally.path("path 3"):
+    with tally.path("path 3"), lin.path("path 3"):
         warm_up("path 3", fast, deit, data["frames"], n_fast=N_STREAMS * BATCH, n_slow=N_STREAMS * BATCH)
         launches, ms_fabric = multistream_phase(fast, deit, ms_frames, ms_labels,
                                                 {"calib_gate": cg_kernel.calib_gate,
@@ -3370,14 +3671,14 @@ def main() -> int:
     phase_done("3c (path 3)")
 
     # ---- 3d. path 4: StableLM-12B prefill and int8-KV decode --------------- #
-    with tally.path("path 4", forwards=0):
+    with tally.path("path 4", forwards=0), lin.path("path 4", launches=0):
         lm_launches = lm_phase({"calib_gate": cg_kernel.calib_gate, "flash_attention": fa_kernel.flash_attention,
                                 "int8_matmul": i8_kernel.int8_matmul,
                                 "int8_kv_decode": kv_kernel.int8_kv_decode})
     phase_done("3d (path 4)")
 
     # ---- 3e. path 5: Table I calibrators, §V replay, split fleet ---------- #
-    with tally.path("path 5"):
+    with tally.path("path 5"), lin.path("path 5"):
         eval_launches = evaluation_phase(fast, deit, ms_frames, ms_labels,
                                          {"calib_gate": cg_kernel.calib_gate,
                                           "flash_attention": fa_kernel.flash_attention,
@@ -3386,7 +3687,7 @@ def main() -> int:
     phase_done("3e (path 5)")
 
     # ---- 3f. path 6: telemetry on path 3's fleet, the planner on the card -- #
-    with tally.path("path 6"):
+    with tally.path("path 6"), lin.path("path 6"):
         tel_launches = telemetry_phase(fast, deit, ms_frames, ms_labels, ms_fabric,
                                        {"calib_gate": cg_kernel.calib_gate,
                                         "flash_attention": fa_kernel.flash_attention,
@@ -3396,7 +3697,7 @@ def main() -> int:
     phase_done("3f (path 6)")
 
     # ---- 3g. path 7: the fleet round on the card, one graph a round -------- #
-    with tally.path("path 7"):
+    with tally.path("path 7"), lin.path("path 7"):
         eng_launches = round_engine_phase(fast, deit, ms_frames, ms_labels, ms_fabric,
                                           {"calib_gate": cg_kernel.calib_gate,
                                            "flash_attention": fa_kernel.flash_attention,
@@ -3406,13 +3707,13 @@ def main() -> int:
     phase_done("3g (path 7)")
 
     # ---- 3h. path 8: DeepSeek-V2-Lite-16B (MLA, MoE) and Arctic-480B ------ #
-    with tally.path("path 8", forwards=0):
+    with tally.path("path 8", forwards=0), lin.path("path 8", launches=0):
         zoo_launches = zoo_phase({"calib_gate": cg_kernel.calib_gate, "flash_attention": fa_kernel.flash_attention,
                                   "int8_matmul": i8_kernel.int8_matmul, "int8_kv_decode": kv_kernel.int8_kv_decode})
     phase_done("3h (path 8)")
 
     # ---- 3i. path 9: Swin-B slow tier, DiT-B/2 and UNet-SDXL denoise calls -- #
-    with tally.path("path 9"):
+    with tally.path("path 9"), lin.path("path 9"):
         diff_launches = diffusion_phase(fast, frames, labels,
                                         {"calib_gate": cg_kernel.calib_gate,
                                          "flash_attention": fa_kernel.flash_attention,
@@ -3423,14 +3724,14 @@ def main() -> int:
     # ---- 3j. path 10: the paper's stack trained, the Trainer, lm_loss ------ #
     counted = {"calib_gate": cg_kernel.calib_gate, "flash_attention": fa_kernel.flash_attention,
                "int8_matmul": i8_kernel.int8_matmul, "int8_kv_decode": kv_kernel.int8_kv_decode}
-    with tally.path("path 10", under_grad=True):
+    with tally.path("path 10", under_grad=True), lin.path("path 10"):
         train_launches = stack_phase(counted)
         for got in (trainer_phase(frames, labels, counted), lm_train_phase(counted)):
             train_launches = {name: train_launches[name] + got[name] for name in counted}
     phase_done("3j (path 10)")
 
     # ---- 3k. path 11: the dry run, analytic and on the card ---------------- #
-    with tally.path("path 11", under_grad=True):
+    with tally.path("path 11", under_grad=True), lin.path("path 11"):
         scale_launches = scale_phase(counted)
     phase_done("3k (path 11)")
 
@@ -3491,6 +3792,7 @@ def main() -> int:
     cg_row, fa_row = cg_rows[0], fa_rows[0]
     i8_row = max((r for r in i8_rows if r["case"].startswith("sweep")), key=lambda r: r["shape"][0])
     kv_row = next(r for r in kv_rows if r["case"] == "StableLM path")
+    li_row = next(r for r in li_rows if r["case"] == "DINOv3 wd" and r["shape"][0] == 2010)
     kernels = [dict(name="calib_gate", route="cuda",
                     source="src/repro_torch/kernels/fused_calib_gate/csrc/calib_gate.cu",
                     replaces="src/repro/kernels/fused_calib_gate/kernel.py:48",
@@ -3538,7 +3840,12 @@ def main() -> int:
                     source="src/repro_torch/kernels/conv_epilogue/csrc/conv_epilogue.cu",
                     replaces=None, launches=sum(tally.paths.values()), max_abs_err=0.0,
                     ms=ce_whole["ms"], plain_ms=ce_whole["plain_ms"], bound_ms=ce_whole["bound_ms"],
-                    bound_by="bytes", library_ms=None)]
+                    bound_by="bytes", library_ms=None),
+               dict(name="linear_3xtf32", route="cuda",
+                    source="src/repro_torch/kernels/linear_3xtf32/csrc/linear_3xtf32.cu",
+                    replaces=None, launches=sum(lin.paths.values()), max_abs_err=li_err,
+                    ms=li_row["ms"], plain_ms=li_row["plain_ms"], bound_ms=li_row["bound_ms"],
+                    bound_by=li_row["bound_by"], library_ms=li_row["library_ms"])]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

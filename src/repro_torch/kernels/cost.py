@@ -65,6 +65,14 @@ def conv_epilogue_cost(N: int, C: int, H: int, W: int, pad: tuple[int, int, int,
     return 0, N * C * H * W * elem_bytes * (2 if residual else 1) + 8 * C + n_out * elem_bytes
 
 
+def linear_cost(M: int, N: int, K: int, bias: bool) -> tuple[int, int]:
+    """2·M·N·K operations, as ``torch.utils.flop_counter`` counts the
+    ``addmm``/``mm`` of the F.linear it replaces (the 3xTF32 kernel's three
+    TF32 products are its way to f32, not more work); x, w (and b) read
+    once, y written once, all f32."""
+    return 2 * M * N * K, 4 * (M * K + N * K + (N if bias else 0) + M * N)
+
+
 _NOT_COUNTED = contextlib.nullcontext()
 
 

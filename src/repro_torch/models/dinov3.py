@@ -29,13 +29,12 @@ in a ``vit.rope`` range and each attention call in ``vit.attn``
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import DINOv3Config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.models.layers import Dense, apply_mlp, apply_rope_2d, rope_2d_table
+from repro_torch.models.layers import Dense, apply_mlp, apply_rope_2d, linear, rope_2d_table
 from repro_torch.models.vit import LayerNorm, patchify
 from repro_torch.obs.profile import model_range
 
@@ -55,13 +54,13 @@ class Attention(nn.Module):
 
     def forward(self, x, cos, sin, n_prefix: int):
         B, S, d = x.shape
-        qkv = F.linear(x, self.wqkv, torch.cat((self.bq, self.no_bk, self.bv)))
+        qkv = linear(x, self.wqkv, torch.cat((self.bq, self.no_bk, self.bv)))
         qkv = qkv.view(B, S, 3, self.n_heads, self.d_head)
         with model_range("vit.rope"):
             qk = apply_rope_2d(qkv[:, :, :2].permute(2, 0, 1, 3, 4), cos, sin, n_prefix)  # (2, B, S, H, Dh)
         with model_range("vit.attn"):
             out = attention(qk[0], qk[1], qkv[:, :, 2], causal=False)
-        return F.linear(out.reshape(B, S, d), self.wo, self.bo)
+        return linear(out.reshape(B, S, d), self.wo, self.bo)
 
 
 class GatedMLP(nn.Module):

@@ -1,6 +1,7 @@
 """Shared layers (port of ``repro.models.layers``).
 
-Plain functions on tensors: the dense layer, LayerNorm and RMSNorm, partial
+Plain functions on tensors: the dense product (``linear``: f32 on the card
+through the 3xTF32 kernel) and layer, LayerNorm and RMSNorm, partial
 rotary embeddings and DINOv3's axial 2D ones, the GQA head expansion, the
 reference's plain causal attention (whole and blockwise), and the GELU and
 SwiGLU MLPs; and the parameter shapes of the norms and MLPs
@@ -18,13 +19,38 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.linear_3xtf32.ops import linear_3xtf32
+
 F32 = torch.float32
 EPS = 1e-5
 NEG = -1e30
 
 
+def kernel_takes(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> bool:
+    """Whether the 3xTF32 kernel takes this product, on what the inputs
+    show whatever their device: float32 throughout, nothing for autograd
+    to record (grad off, or no input that requires grad), K and N
+    multiples of 4 (TMA's 16-byte strides), and rows to multiply."""
+    records = torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b))
+    return (x.dtype == F32 and w.dtype == F32 and (b is None or b.dtype == F32) and not records
+            and x.shape[-1] % 4 == 0 and w.shape[0] % 4 == 0 and x.numel() > 0)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """``F.linear(x, w, b)``, w in its ``(out, in)`` layout.
+
+    A product on the card that ``kernel_takes`` runs the hand-written
+    3xTF32 kernel (``kernels/linear_3xtf32``): on the tensor cores at
+    f32-level error, where PyTorch with TF32 off takes cuBLAS's f32 product
+    on the CUDA cores.  Every other product (the CPU, meta, bf16 and f16,
+    training, other widths) is ``F.linear``."""
+    if x.is_cuda and kernel_takes(x, w, b):
+        return linear_3xtf32(x, w, b)
+    return F.linear(x, w, b)
+
+
 class Dense(nn.Module):
-    """``F.linear`` with ``w`` in its ``(out, in)`` layout and bias ``b``."""
+    """``linear`` with ``w`` in ``F.linear``'s ``(out, in)`` layout and bias ``b``."""
 
     def __init__(self, d_in: int, d_out: int):
         super().__init__()
@@ -32,7 +58,7 @@ class Dense(nn.Module):
         self.b = nn.Parameter(torch.zeros(d_out))
 
     def forward(self, x):
-        return F.linear(x, self.w, self.b)
+        return linear(x, self.w, self.b)
 
 
 def apply_norm(p, x: torch.Tensor, kind: str = "layernorm", eps: float = EPS) -> torch.Tensor:
@@ -227,14 +253,15 @@ def apply_mlp(p, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
     models' have none); silu in f32, cast back to x's dtype before the
     product with the up projection.
     ``gelu``: ``wi`` (d_ff, d), ``wo`` (d, d_ff); the reference's
-    ``jax.nn.gelu(approximate=True)`` is the tanh form."""
+    ``jax.nn.gelu(approximate=True)`` is the tanh form.  Every product is
+    ``linear``."""
     if act == "swiglu":
         bg, bu, bd = (p[k] if k in p else None for k in ("bg", "bu", "bd"))
-        g = F.linear(x, p["wg"], bg)
-        u = F.linear(x, p["wu"], bu)
-        return F.linear(F.silu(g.to(F32)).to(x.dtype) * u, p["wd"], bd)
-    h = F.gelu(F.linear(x, p["wi"]).to(F32), approximate="tanh").to(x.dtype)
-    return F.linear(h, p["wo"])
+        g = linear(x, p["wg"], bg)
+        u = linear(x, p["wu"], bu)
+        return linear(F.silu(g.to(F32)).to(x.dtype) * u, p["wd"], bd)
+    h = F.gelu(linear(x, p["wi"]).to(F32), approximate="tanh").to(x.dtype)
+    return linear(h, p["wo"])
 
 
 

@@ -21,7 +21,6 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import SwinConfig
 from repro_torch.models.layers import (
@@ -36,6 +35,7 @@ from repro_torch.models.layers import (
     apply_norm,
     flat,
     leaf,
+    linear,
     mlp_shapes,
     norm_shapes,
 )
@@ -113,7 +113,7 @@ def _window_attention(p, x, window: int, shift: int, rel_index, mask):
         x = torch.roll(x, (-shift, -shift), dims=(1, 2))
     nh, nw = H // window, W // window
     xw = x.reshape(B, nh, window, nw, window, C).permute(0, 1, 3, 2, 4, 5).reshape(B * nh * nw, window**2, C)
-    qkv = F.linear(xw, p["wqkv"], p["bqkv"]).view(B * nh * nw, window**2, 3, n_heads, d_head)
+    qkv = linear(xw, p["wqkv"], p["bqkv"]).view(B * nh * nw, window**2, 3, n_heads, d_head)
     q, k, v = qkv.unbind(2)
     scores = torch.einsum("nqhk,nshk->nhqs", q, k).to(F32) / math.sqrt(d_head)
     bias = p["rel_bias"][rel_index]  # (W², W², H)
@@ -124,7 +124,7 @@ def _window_attention(p, x, window: int, shift: int, rel_index, mask):
         scores = scores.view(B * nh * nw, n_heads, window**2, window**2)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("nhqs,nshk->nqhk", probs, v)
-    out = F.linear(out.reshape(B * nh * nw, window**2, n_heads * d_head), p["wo"])
+    out = linear(out.reshape(B * nh * nw, window**2, n_heads * d_head), p["wo"])
     out = out.reshape(B, nh, nw, window, window, C).permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, C)
     if shift:
         out = torch.roll(out, (shift, shift), dims=(1, 2))
@@ -136,7 +136,7 @@ def swin_forward(m: "Swin", images: torch.Tensor, cfg: SwinConfig) -> torch.Tens
     B, R = images.shape[0], images.shape[1]
     window = swin_window_for(cfg, R)
     pe = m["patch_embed"]
-    x = F.linear(patchify(images, cfg.patch).to(pe["w"].dtype), pe["w"], pe["b"])
+    x = linear(patchify(images, cfg.patch).to(pe["w"].dtype), pe["w"], pe["b"])
     x = apply_norm(m["pos_norm"], x)
     H = W = R // cfg.patch
     x = x.reshape(B, H, W, -1)
@@ -154,12 +154,12 @@ def swin_forward(m: "Swin", images: torch.Tensor, cfg: SwinConfig) -> torch.Tens
             merge = stage["merge"]
             C = x.shape[-1]
             x = x.reshape(B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 2, 4, 5).reshape(B, H // 2, W // 2, 4 * C)
-            x = F.linear(apply_norm(merge["norm"], x), merge["w"])
+            x = linear(apply_norm(merge["norm"], x), merge["w"])
             H, W = H // 2, W // 2
     x = apply_norm(m["final_norm"], x)
     x = x.reshape(B, H * W, -1).to(F32).mean(dim=1)
     head = m["head"]
-    return F.linear(x, head["w"].to(F32)) + head["b"].to(F32)
+    return linear(x, head["w"].to(F32)) + head["b"].to(F32)
 
 
 class Swin(ParamTree):

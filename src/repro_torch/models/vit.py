@@ -18,7 +18,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ViTConfig
@@ -26,7 +25,7 @@ from repro_torch.core.cascade import _resize
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.models.layers import (HEADS_OUT, LINEAR, QKV, Dense, Leaf, apply_mlp, apply_norm, flat, leaf,
-                                      mlp_shapes, norm_shapes)
+                                      linear, mlp_shapes, norm_shapes)
 from repro_torch.obs.profile import model_range
 
 F32 = torch.float32
@@ -54,13 +53,13 @@ class Attention(nn.Module):
 
     def forward(self, x):
         B, S, _ = x.shape
-        qkv = F.linear(x, self.wqkv, self.bqkv).view(B, S, 3, self.n_heads, self.d_head)
+        qkv = linear(x, self.wqkv, self.bqkv).view(B, S, 3, self.n_heads, self.d_head)
         # q, k, v are strided views (B, S, H, Dh) of one projection; the
         # kernel reads them in place.  This is the function the reference's
         # ``attention_core(causal=False)`` computes (``layers.py:80-130``).
         with model_range("vit.attn"):
             out = attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], causal=False)
-        return F.linear(out.reshape(B, S, self.n_heads * self.d_head), self.wo, self.bo)
+        return linear(out.reshape(B, S, self.n_heads * self.d_head), self.wo, self.bo)
 
 
 class MLP(nn.Module):

@@ -931,14 +931,16 @@ def test_moe_layer_card_matches_cpu(cuda_device, no_tf32, groups):
 def test_mla_decode_card_matches_cpu(cuda_device, no_tf32, absorb):
     """deepseek-v2-lite-smoke in float32 (MLA and an MoE layer): prefill,
     then four decode steps past a ring wrap, naive or absorbed, card
-    against CPU within 1e-4 and the greedy tokens equal; no hand-written
-    kernel runs."""
+    against CPU within 1e-4 and the greedy tokens equal; no int8-KV kernel
+    runs, and the f32 MLPs' products run the 3xTF32 kernel."""
     from repro_torch.configs.deepseek_v2_lite_16b import SMOKE as DSV2_SMOKE
+    from repro_torch.kernels.linear_3xtf32 import kernel as linear_kernel
     from repro_torch.models.transformer import ParallelPlan, lm_decode, lm_prefill
 
     plan = ParallelPlan(mla_absorb=absorb, pad_attention_heads=False)
     cpu, card = _lm_card_and_cpu(DSV2_SMOKE, plan, cuda_device, seed=1)
     tokens = torch.as_tensor(np.random.default_rng(4).integers(0, DSV2_SMOKE.vocab_size, (2, 10)))
+    linear_before = linear_kernel.linear_3xtf32.launches
     lc, cache_c = lm_prefill(cpu, tokens, DSV2_SMOKE, plan)
     lg, cache_g = lm_prefill(card, tokens.to(cuda_device), DSV2_SMOKE, plan)
     torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
@@ -950,6 +952,7 @@ def test_mla_decode_card_matches_cpu(cuda_device, no_tf32, absorb):
         lg, cache_g = lm_decode(card, cache_g, tok.to(cuda_device), pos, DSV2_SMOKE, plan)
         torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
     assert kv_kernel.int8_kv_decode.launches == before
+    assert linear_kernel.linear_3xtf32.launches > linear_before
     assert cache_g["ckv"].device.type == cuda_device.type and cache_g["ckv"].shape == cache_c["ckv"].shape
 
 
